@@ -8,8 +8,9 @@ port's main path — one episode synced through ``sushi_tpu_torch.cli`` —
 on the card, then checks it:
 
 1. the card's name and power limit (``nvidia-smi``), and the kernel build;
-2. each kernel vs its plain PyTorch version on the card, at the main
-   path's shapes, on uint8-quantized rows with plateaus and silence so
+2. each kernel vs its plain PyTorch version on the card, at every n that
+   phases 3-6 launch it with (with the largest batch and pat_cap seen at
+   that n), on uint8-quantized rows with plateaus and silence so
    that exact ties occur (rescore rtol 1e-6; coarse post block_min atol
    2e-6, block args and tie seeds equal, the seeds inside their bands, the
    final (score, lag) equal between the kernel and the plain path), timed
@@ -20,36 +21,69 @@ on the card, then checks it:
    both kernels launched on the way, a >2^17 bucket hit;
 4. a 3-min pathological pair (+15 s jump, corrupted span): per-group
    shifts equal to a sequential run of the float64 host oracle, through
-   the rewind escalation's 786432 bucket.
+   the rewind escalation's 786432 bucket;
+5. a season of 12 eight-minute episodes (bench.py's season recipe, one
+   with a +12 s jump) through ``sushi_tpu_torch.season.main`` with 8 ingest
+   threads, cold then warm: no failed episode, every output byte-identical
+   to that episode's single sync through the CLI, every line of the 11
+   clean episodes within 1 ms, a warm round merging three or more
+   episodes, both kernels launched;
+6. wide windows at the real 2^22 FFT cap on two 10-min streams: a 3 s
+   pattern in a 400 s window (lag-chunked into 2^20 rows) and a 180 s
+   pattern in a 400 s window (matched alone at 3*2^21), each finding the
+   planted lag, with (score, lag) equal to the plain path on the CPU
+   (lag equal, score rtol 1e-6).
 
-Any failed check exits non-zero.  The last two lines of standard output
-are the kernels' JSON record and the device JSON.  Fixtures and the stream
-cache live under ``build/chip_smoke/`` (git-ignored, recreated each run).
-Imports nothing of JAX.
+Every kernel launch counter is set to 0 just before each of phases 3-6
+drives its path and read just after; each phase fails if a kernel was not
+launched.  Any failed check exits non-zero.  The last two lines of
+standard output are the kernels' JSON record and the device JSON.
+Fixtures and the stream cache live under ``build/chip_smoke/``
+(git-ignored, recreated each run).  Imports nothing of JAX.
 """
 
+import contextlib
 import json
 import logging
 import os
 import shutil
 import subprocess
 import sys
+import threading
 import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 WORK = os.path.join(REPO, "build", "chip_smoke")
 SAMPLE_RATE = 12000
 
-# (batch, n, pat_cap) of the main path's buckets: the 1.5 s fast path
-# (49152, 98304), the 10 s verified probe (262144, 393216) and the 30 s
-# rewind escalation (786432)
+# (batch, n, pat_cap) of the kernel launches.  First the shapes the first
+# check was written for: the 1.5 s fast path (49152, 98304), the 10 s
+# verified probe (262144, 393216) and the 30 s rewind escalation (786432)
 KERNEL_SHAPES = (
     (64, 49152, 12288),
     (64, 98304, 32768),
     (128, 262144, 24576),
     (128, 393216, 49152),
     (8, 786432, 65536),
+    # at each n that phases 3-5 launch the kernels with, the largest batch
+    # and the largest pat_cap seen there on the H100: the seeds' probe (a
+    # pattern that nearly fills its window), the fast path of longer groups
+    # on both sides of the 2^17 line between the TPU's K2 and K3, and the
+    # verified probes of longer groups
+    (8, 24576, 24576),
+    (128, 65536, 32768),
+    (64, 98304, 65536),
+    (32, 131072, 98304),
+    (32, 196608, 65536),
+    (128, 262144, 65536),
+    (128, 393216, 65536),
+    (8, 393216, 98304),
+    # phase 6: the 400 s window's 2^20 lag chunks, and the lone 180 s pattern
+    (8, 1 << 20, 49152),
+    (1, 3 << 21, 3 << 20),
 )
+# the shape whose times stand in the kernels' JSON line
+HEADLINE_SHAPE = "128x393216/49152"
 RESCORE_RTOL = 1e-6
 BLOCK_MIN_ATOL = 2e-6
 # bench.py's recipes: build_fixture (the headline) and _synth_pair (the
@@ -61,6 +95,18 @@ HEADLINE = dict(seconds=24 * 60, count=350, shift=3.417, seed=2024, audio_seed=7
                 span=2.5, gap=0.5, gap_span=1.5)
 PATHOLOGICAL = dict(seconds=180, count=36, shift=2.0, seed=99, audio_seed=100,
                     span=2.0, gap=0.6, gap_span=1.8, jump=15.0, corrupt=True)
+# bench.py's build_season_fixtures: 12 of its 8-min episodes, the jump at slot 5
+SEASON = dict(episodes=12, seconds=480.0, jump_slot=5, io_threads=8)
+# phase 6: two 10-min streams at 12 kHz; per case (pattern start, pattern
+# length, window start, window length, planted lag), in samples
+WIDE = dict(
+    samples=600 * SAMPLE_RATE,
+    cases=(
+        ("lag-chunked", 500 * SAMPLE_RATE, 3 * SAMPLE_RATE, 100 * SAMPLE_RATE, 400 * SAMPLE_RATE, 4100000),
+        ("alone", 30 * SAMPLE_RATE, 180 * SAMPLE_RATE, 150 * SAMPLE_RATE, 400 * SAMPLE_RATE, 1234567),
+    ),
+)
+WIDE_SCORE_RTOL = 1e-6
 
 
 class SmokeFailure(Exception):
@@ -112,7 +158,9 @@ def kernel_inputs(batch, n, pat_cap, device, seed):
     Even rows' patterns are a noisy copy of a window span.  Odd rows'
     patterns are constant, and their windows hold a plateau of that
     constant (a run of exact-zero scores, the tie bands' first lag at its
-    start) and a run of silence (den = 0, whole blocks of 2.0)."""
+    start) and a run of silence (den = 0, whole blocks of 2.0); where the
+    two runs do not fit side by side, the plateau starts the window and
+    silence fills the rest."""
     import numpy as np
     import torch
 
@@ -133,11 +181,15 @@ def kernel_inputs(batch, n, pat_cap, device, seed):
             patterns[b, :pat_len] = np.clip(span + rng.randint(-13, 14, pat_len), 0, 255)
             continue
         run = pat_len + 3 * sqdiff.LANES
+        patterns[b, :pat_len] = 128
+        if 2 * run > win_len:
+            windows[b, : min(run, win_len)] = 128
+            windows[b, run:win_len] = 0
+            continue
         plateau = rng.randint(0, win_len // 2 - run + 1)
         silence = rng.randint(win_len // 2, win_len - run + 1)
         windows[b, plateau : plateau + run] = 128
         windows[b, silence : silence + run] = 0
-        patterns[b, :pat_len] = 128
 
     def as_rows(values):
         return torch.from_numpy(values).to(device).to(torch.float32) * (1.0 / 255.0)
@@ -206,7 +258,7 @@ def check_kernels(device):
         records["rescore"]["max_abs_err"] = max(records["rescore"]["max_abs_err"], rescore_err)
         records["coarse_post"]["max_abs_err"] = max(records["coarse_post"]["max_abs_err"], coarse_err)
         for name, pair in times.items():
-            records[name]["times"]["%dx%d" % (batch, n)] = pair
+            records[name]["times"]["%dx%d/%d" % (batch, n, pat_cap)] = pair
         log(
             "phase 2: %3dx%-7d pat_cap %-6d rescore %.4f ms (plain %.4f)  coarse_post %.4f ms "
             "(plain %.4f)  cuFFT correlation %.4f ms  err rescore %g block_min %g  ok"
@@ -296,6 +348,19 @@ class _Recorder:
         return wrapper
 
 
+@contextlib.contextmanager
+def _dropping_new_log_handlers():
+    """Removes the root log handlers added inside the block (the CLI adds
+    one per call, the season's ``main`` one through ``basicConfig``)."""
+    root = logging.getLogger()
+    count = len(root.handlers)
+    try:
+        yield
+    finally:
+        for handler in root.handlers[count:]:
+            root.removeHandler(handler)
+
+
 def sync_episode(paths, out_path, device):
     """One CLI sync; returns (seconds, recorder, telemetry summary)."""
     from sushi_tpu_torch import pipeline
@@ -304,34 +369,34 @@ def sync_episode(paths, out_path, device):
 
     src, dst, script = paths
     TELEMETRY.reset()
-    root = logging.getLogger()
-    handlers = list(root.handlers)
     started = time.perf_counter()
-    try:
-        with _Recorder(pipeline) as recorder:
-            parse_args_and_run(["--src", src, "--dst", dst, "--script", script, "-o", out_path], device=device)
-    finally:
-        for handler in root.handlers[len(handlers):]:
-            root.removeHandler(handler)  # the CLI adds one per call
+    with _dropping_new_log_handlers(), _Recorder(pipeline) as recorder:
+        parse_args_and_run(["--src", src, "--dst", dst, "--script", script, "-o", out_path], device=device)
     return time.perf_counter() - started, recorder, TELEMETRY.summary()
 
 
-def check_headline(paths, out_path, results, shift):
+def worst_line_error(what, script_path, out_path, shift):
+    """Worst start/end error (s) of the written script's lines against the
+    source script's lines moved by the true ``shift``; fails past 1 ms."""
     from sushi_tpu.text.subs import SrtScript
 
-    check(results is not None and len(results) > 0, "headline: the search returned no groups")
-    worst_group = max(abs(r.shift - shift) if r.shift is not None else float("inf") for r in results)
-    check(worst_group <= 1.0 / SAMPLE_RATE + 1e-9,
-          "headline: a group shift is %.3g s off the true shift" % worst_group)
-    source = SrtScript.from_file(paths[2]).events
+    source = SrtScript.from_file(script_path).events
     written = SrtScript.from_file(out_path).events
-    check(len(source) == len(written), "headline: the written script lost lines")
+    check(len(source) == len(written), "%s: the written script lost lines" % what)
     worst_line = max(
         max(abs(w.start - (s.start + shift)), abs(w.end - (s.end + shift)))
         for s, w in zip(source, written)
     )
-    check(worst_line <= 1e-3 + 1e-9, "headline: a written line is %.4f s off" % worst_line)
-    return worst_group, worst_line
+    check(worst_line <= 1e-3 + 1e-9, "%s: a written line is %.4f s off" % (what, worst_line))
+    return worst_line
+
+
+def check_headline(paths, out_path, results, shift):
+    check(results is not None and len(results) > 0, "headline: the search returned no groups")
+    worst_group = max(abs(r.shift - shift) if r.shift is not None else float("inf") for r in results)
+    check(worst_group <= 1.0 / SAMPLE_RATE + 1e-9,
+          "headline: a group shift is %.3g s off the true shift" % worst_group)
+    return worst_group, worst_line_error("headline", paths[2], out_path, shift)
 
 
 def pathological_parity(paths, device):
@@ -380,6 +445,204 @@ def pathological_parity(paths, device):
 
 
 # ---------------------------------------------------------------------------
+# phase 5: the season
+
+
+def season_fixtures(directory, episodes, seconds, jump_slot):
+    """bench.py's build_season_fixtures recipe: episode i has seed 1000 + i,
+    true shift 0.8 + (i * 0.37 mod 3.8) s and 55 + (i * 7 mod 41) events
+    (scaled by ``seconds`` / 480 for shorter rehearsals); the episode at
+    ``jump_slot`` gets a +12 s noise insert.  Returns [(paths, shift)]."""
+    fixtures = []
+    for i in range(episodes):
+        shift = 0.8 + (i * 0.37) % 3.8
+        paths = synth_pair(
+            os.path.join(directory, "ep%02d" % i), seconds=seconds,
+            count=int(round((55 + (i * 7) % 41) * seconds / 480.0)), shift=shift,
+            seed=1000 + i, audio_seed=1001 + i, span=2.0, gap=0.6, gap_span=1.8,
+            jump=12.0 if i == jump_slot else 0.0,
+        )
+        fixtures.append((paths, shift))
+    return fixtures
+
+
+class _RoundRecorder:
+    """Wraps the season module's ``execute_planned_multi`` to record each
+    merged round as (distinct stream pairs, i.e. episodes; items; its
+    ``RoundStats``).  Ingest threads append seed rounds to ``TELEMETRY``
+    meanwhile, so a round's stats are the new entry of the calling thread."""
+
+    def __init__(self, season):
+        self.rounds = []
+        self._season = season
+        self._original = season.execute_planned_multi
+
+    def __enter__(self):
+        from sushi_tpu_torch.align.batcher import TELEMETRY
+
+        def recording(items, *args, **kwargs):
+            before = len(TELEMETRY.rounds)
+            result = self._original(items, *args, **kwargs)
+            thread = threading.get_ident()
+            [stats] = [r for r in TELEMETRY.rounds[before:] if r.thread == thread]
+            self.rounds.append((len({id(pair) for pair, _ in items}), len(items), stats))
+            return result
+
+        self._season.execute_planned_multi = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._season.execute_planned_multi = self._original
+
+
+def season_run(jobs_path, io_threads, device):
+    """One season through ``sushi_tpu_torch.season.main``; returns
+    (seconds, merged rounds, telemetry summary of every round, seeds
+    included)."""
+    from sushi_tpu_torch import season
+    from sushi_tpu_torch.align.batcher import TELEMETRY
+
+    TELEMETRY.reset()
+    started = time.perf_counter()
+    try:
+        with _dropping_new_log_handlers(), _RoundRecorder(season) as recorder:
+            season.main([jobs_path, "--io-threads", str(io_threads)], device=device)
+    except SystemExit as exited:
+        raise SmokeFailure("season: main exited with code %s (see its log for the failed episodes)"
+                           % exited.code)
+    return time.perf_counter() - started, recorder.rounds, TELEMETRY.summary()
+
+
+def check_season(device, directory, episodes, seconds, jump_slot, io_threads, min_merged=3):
+    """The season cold then warm, each output against its episode's single
+    sync through the CLI, the clean episodes' lines against the truth;
+    returns the numbers to print, with the kernel launches of the two
+    season runs (counted from 0 just before the cold run)."""
+    from sushi_tpu_torch.cli import parse_args_and_run
+
+    started = time.perf_counter()
+    fixtures = season_fixtures(directory, episodes, seconds, jump_slot)
+    stats = {"fixture_seconds": time.perf_counter() - started}
+    jobs = [dict(src=src, dst=dst, script=script, output=os.path.join(os.path.dirname(src), "season.srt"))
+            for (src, dst, script), _ in fixtures]
+    jobs_path = os.path.join(directory, "jobs.json")
+    with open(jobs_path, "w", encoding="utf-8") as handle:
+        json.dump(jobs, handle)
+
+    reset_launches()
+    for run in ("cold", "warm"):
+        run_seconds, merged, summary = season_run(jobs_path, io_threads, device)
+        merged_fetch = sum(r.fetch_seconds for _, _, r in merged)
+        stats[run] = dict(
+            seconds=run_seconds, seconds_per_episode=run_seconds / episodes, merged_rounds=len(merged),
+            seed_rounds=summary["rounds"] - len(merged), requests=summary["requests"],
+            merged_requests=sum(items for _, items, _ in merged),
+            max_episodes_per_round=max(pairs for pairs, _, _ in merged),
+            dispatch_seconds=summary["dispatch_seconds"], fetch_seconds=summary["fetch_seconds"],
+            merged_fetch_seconds=merged_fetch, seed_fetch_seconds=summary["fetch_seconds"] - merged_fetch,
+            buckets=summary["buckets"],
+        )
+    stats["launches"] = launch_counts()
+    check(stats["warm"]["max_episodes_per_round"] >= min_merged,
+          "season: no warm round merged %d episodes (rounds: %s)"
+          % (min_merged, [(pairs, items) for pairs, items, _ in merged]))
+
+    started = time.perf_counter()
+    worst_line = 0.0
+    for i, job in enumerate(jobs):
+        single = os.path.join(os.path.dirname(job["src"]), "single.srt")
+        with _dropping_new_log_handlers():
+            parse_args_and_run(["--src", job["src"], "--dst", job["dst"], "--script", job["script"],
+                                "-o", single], device=device)
+        with open(job["output"], "rb") as season_out, open(single, "rb") as single_out:
+            check(season_out.read() == single_out.read(), "season: episode %d differs from its single sync" % i)
+        if i != jump_slot:
+            worst_line = max(worst_line, worst_line_error(
+                "season episode %d" % i, job["script"], job["output"], fixtures[i][1]))
+    stats["single_seconds"] = time.perf_counter() - started
+    stats["worst_line"] = worst_line
+    return stats
+
+
+# ---------------------------------------------------------------------------
+# phase 6: wide windows at the real FFT cap
+
+
+def wide_streams(samples, cases, seed=6):
+    """Two seeded uint8 noise streams; each case's source pattern is planted
+    in the destination at its window start + lag, with +-3 noise."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    src = rng.randint(0, 256, samples).astype(np.uint8)
+    dst = rng.randint(0, 256, samples).astype(np.uint8)
+    for _, pat_start, pat_len, win_start, _, lag in cases:
+        copy = src[pat_start : pat_start + pat_len].astype(np.int16) + rng.randint(-3, 4, pat_len)
+        dst[win_start + lag : win_start + lag + pat_len] = np.clip(copy, 0, 255)
+    return src, dst
+
+
+def check_wide_windows(device, samples, cases):
+    """Each case through ``execute_planned`` on ``device`` (twice: cold,
+    then warm) and through the plain path on the CPU; returns
+    [(name, route, result, device seconds cold/warm, CPU seconds, buckets)]."""
+    import numpy as np
+    import torch
+
+    from sushi_tpu_torch.align import batcher
+
+    src, dst = wide_streams(samples, cases)
+
+    def resident(where):
+        return [torch.from_numpy(np.pad(a, (0, batcher._MAX_FFT))).to(where) for a in (src, dst)]
+
+    on_device, on_cpu = resident(device), resident("cpu")
+    records = []
+    for name, pat_start, pat_len, win_start, win_len, lag in cases:
+        item = batcher.PlannedSearch(name, pat_start, pat_len, win_start, win_len, 0.0, SAMPLE_RATE)
+        check(batcher._fft_bucket(win_len) < win_len, "wide %s: the window fits one bucket" % name)
+        chunks = batcher.plan_wide_chunks(item, batcher._MAX_FFT)
+        route = "alone" if chunks is None else "%d lag chunks" % len(chunks)
+        check((chunks is None) == (name == "alone"), "wide %s: planned as %s" % (name, route))
+        batcher.TELEMETRY.reset()
+        times = []
+        for _ in range(2):
+            started = time.perf_counter()
+            got = batcher.execute_planned(*on_device, [item])[name]
+            times.append(time.perf_counter() - started)
+        buckets = batcher.TELEMETRY.summary()["buckets"]
+        started = time.perf_counter()
+        want = batcher.execute_planned(*on_cpu, [item])[name]
+        cpu_seconds = time.perf_counter() - started
+        check(got[2] - win_start == lag, "wide %s: found lag %d, planted %d" % (name, got[2] - win_start, lag))
+        check(got[2] == want[2], "wide %s: lag %d differs from the plain path's %d"
+              % (name, got[2] - win_start, want[2] - win_start))
+        check(abs(got[0] - want[0]) <= WIDE_SCORE_RTOL * abs(want[0]),
+              "wide %s: score %r differs from the plain path's %r" % (name, got[0], want[0]))
+        records.append((name, route, got, times, cpu_seconds, buckets))
+    return records
+
+
+def reset_launches():
+    from sushi_tpu_torch.ops import coarse, rescore
+
+    rescore.rescore_candidates.launches = 0
+    coarse.coarse_post.launches = 0
+
+
+def launch_counts():
+    """Both kernels' launch counts since :func:`reset_launches`."""
+    from sushi_tpu_torch.ops import coarse, rescore
+
+    return {"rescore": rescore.rescore_candidates.launches, "coarse_post": coarse.coarse_post.launches}
+
+
+def require_launched(what, counts):
+    check(all(count > 0 for count in counts.values()), "%s: a kernel was never launched: %s" % (what, counts))
+    return counts
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -389,7 +652,8 @@ def main():
         print("chip_smoke: no CUDA device; this smoke test runs only on an NVIDIA GPU", file=sys.stderr)
         return 2
     sys.path.insert(0, REPO)
-    from sushi_tpu_torch.ops import build, coarse, rescore
+    from sushi_tpu_torch.align import batcher
+    from sushi_tpu_torch.ops import build
 
     device = torch.device("cuda")
     shutil.rmtree(WORK, ignore_errors=True)
@@ -411,11 +675,10 @@ def main():
     headline = synth_pair(os.path.join(WORK, "headline"), **HEADLINE)
     log("phase 3: fixture (24 min, 350 events) written in %.1f s" % (time.perf_counter() - started))
     out_path = os.path.join(WORK, "headline", "out.srt")
-    rescore.rescore_candidates.launches = 0
-    coarse.coarse_post.launches = 0
+    launches = {}
+    reset_launches()
     cold_seconds, cold, summary = sync_episode(headline, out_path, device)
-    launches = {"rescore": rescore.rescore_candidates.launches, "coarse_post": coarse.coarse_post.launches}
-    check(all(count > 0 for count in launches.values()), "headline: a kernel was never launched: %s" % launches)
+    launches["phase 3"] = require_launched("headline", launch_counts())
     check(any(int(size) > 1 << 17 for size in summary["buckets"]), "headline: no bucket above 2^17")
     worst_group, worst_line = check_headline(headline, out_path, cold.results, HEADLINE["shift"])
     warm_seconds, warm, _ = sync_episode(headline, out_path, device)
@@ -427,12 +690,15 @@ def main():
         % (cold_seconds, cold.seconds["load_pair"], cold.seconds["calculate_shifts"],
            warm_seconds, warm.seconds["load_pair"], warm.seconds["calculate_shifts"],
            summary["rounds"], summary["requests"], summary["dispatch_seconds"],
-           summary["fetch_seconds"], json.dumps(summary["buckets"]), launches, worst_group, worst_line)
+           summary["fetch_seconds"], json.dumps(summary["buckets"]), launches["phase 3"], worst_group,
+           worst_line)
     )
 
     # phase 4: the pathological pair vs the sequential float64 oracle
     patho = synth_pair(os.path.join(WORK, "pathological"), **PATHOLOGICAL)
+    reset_launches()
     results, mismatches, patho_summary, device_seconds, oracle_seconds = pathological_parity(patho, device)
+    launches["phase 4"] = require_launched("pathological", launch_counts())
     check(not mismatches, "pathological: group shifts differ from the oracle: %s" % mismatches[:5])
     check(any(int(size) >= 786432 for size in patho_summary["buckets"]),
           "pathological: the rewind never reached the 786432 bucket")
@@ -444,17 +710,53 @@ def main():
            oracle_seconds)
     )
 
+    # phase 5: the season, cold then warm, against single syncs
+    season = check_season(device, os.path.join(WORK, "season"), **SEASON)
+    launches["phase 5"] = require_launched("season", season["launches"])
+    for run in ("cold", "warm"):
+        stats = season[run]
+        log(
+            "phase 5: %s season of %d episodes %.3f s (%.4f s per episode); %d merged rounds (%d requests, "
+            "up to %d episodes in one round) + %d seed rounds; %d requests in all, dispatch %.3f s, fetch "
+            "%.3f s (merged rounds %.3f, seed rounds %.3f); buckets %s"
+            % (run, SEASON["episodes"], stats["seconds"], stats["seconds_per_episode"], stats["merged_rounds"],
+               stats["merged_requests"], stats["max_episodes_per_round"], stats["seed_rounds"],
+               stats["requests"], stats["dispatch_seconds"], stats["fetch_seconds"],
+               stats["merged_fetch_seconds"], stats["seed_fetch_seconds"], json.dumps(stats["buckets"]))
+        )
+    log(
+        "phase 5: fixtures written in %.1f s; %d single syncs in %.3f s, each byte-identical to the season's "
+        "output; worst line error of the %d clean episodes %.4f s; kernel launches in the two season runs %s  ok"
+        % (season["fixture_seconds"], SEASON["episodes"], season["single_seconds"], SEASON["episodes"] - 1,
+           season["worst_line"], launches["phase 5"])
+    )
+
+    # phase 6: wide windows at the real FFT cap, against the plain path on the CPU
+    check(batcher._MAX_FFT == 1 << 22, "wide: the FFT cap is %d, not 2^22" % batcher._MAX_FFT)
+    reset_launches()
+    wide = check_wide_windows(device, **WIDE)
+    launches["phase 6"] = require_launched("wide windows", launch_counts())
+    for name, route, (score, _, _), times, cpu_seconds, buckets in wide:
+        log(
+            "phase 6: %s (%s): planted lag found, score %.9g equal to the CPU plain path; card %.3f s cold, "
+            "%.3f s warm; CPU %.3f s; buckets %s"
+            % (name, route, score, times[0], times[1], cpu_seconds, json.dumps(buckets))
+        )
+    log("phase 6: kernel launches %s  ok" % launches["phase 6"])
+
     kernels = []
     for name, source, replaces, extra in (
         ("rescore", "sushi_tpu_torch/csrc/rescore.cu", "sushi_tpu/ops/pallas_ssd.py:59", {}),
         ("coarse_post", "sushi_tpu_torch/csrc/coarse_post.cu", "sushi_tpu/ops/pallas_coarse.py:98",
          {"also_replaces": "sushi_tpu/ops/pallas_coarse.py:199"}),
     ):
-        ms, plain_ms = records[name]["times"]["128x393216"]
+        ms, plain_ms = records[name]["times"][HEADLINE_SHAPE]
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, **extra,
-            launches=launches[name], max_abs_err=records[name]["max_abs_err"],
-            ms=ms, plain_ms=plain_ms, shape="128x393216",
+            launches=sum(counts[name] for counts in launches.values()),
+            launches_by_phase={phase: counts[name] for phase, counts in launches.items()},
+            max_abs_err=records[name]["max_abs_err"],
+            ms=ms, plain_ms=plain_ms, shape=HEADLINE_SHAPE,
             times_ms={shape: {"ms": k, "plain_ms": p} for shape, (k, p) in records[name]["times"].items()},
         ))
     print(json.dumps({"kernels": kernels}))

@@ -1,4 +1,4 @@
-"""sushi-tpu-torch: the single-episode sync of sushi-tpu on PyTorch + CUDA.
+"""sushi-tpu-torch: the episode and season syncs of sushi-tpu on PyTorch + CUDA.
 
 A second package beside :mod:`sushi_tpu`, which stays the reference it is
 held against.  Host logic that never touches JAX (script parsing, WAV
@@ -14,7 +14,8 @@ ingest, the search state machine, heuristics) is reused from
   (``csrc/coarse_post.cu``);
 * :mod:`sushi_tpu_torch.align.batcher` — the batched speculative-replay
   executor; :mod:`sushi_tpu_torch.pipeline` / :mod:`sushi_tpu_torch.cli`
-  — the CLI pipeline.
+  — the CLI pipeline; :mod:`sushi_tpu_torch.season` — the season batch
+  sync, whose episodes share device rounds.
 
 The package never imports ``jax``.
 """

@@ -25,6 +25,7 @@ the ``[4, B]`` bounds per chunk and ONE device->host copy per round.
 from __future__ import annotations
 
 import logging
+import threading
 import time
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -64,6 +65,8 @@ class RoundStats:
     fetch_seconds: float = 0.0
     # {fft_size: [real_rows, padded_rows, chunks]}
     buckets: Dict[int, List[int]] = field(default_factory=dict)
+    # the host thread that ran the round (a season's seeds run on ingest threads)
+    thread: int = field(default_factory=threading.get_ident)
 
     def record_chunk(self, fft_size: int, rows: int, padded_rows: int) -> None:
         bucket = self.buckets.setdefault(fft_size, [0, 0, 0])
@@ -135,6 +138,11 @@ _UPLOAD_MEMO_MAX = 64
 # {(src cache_key, dst cache_key): whole-stream alignment estimate}
 _DELTA0_MEMO: Dict[Tuple[str, str], int] = {}
 
+# season ingest threads upload and seed concurrently: lockless eviction would
+# race (two threads pop the same key, and the KeyError fails an episode).
+# Held around the dict operations only, never around a device call.
+_MEMO_LOCK = threading.Lock()
+
 
 def upload_stream(stream: AudioStream, device) -> torch.Tensor:
     """Device tensor of a stream's analysis buffer, memoized.
@@ -146,15 +154,17 @@ def upload_stream(stream: AudioStream, device) -> torch.Tensor:
     key = getattr(stream, "cache_key", None)
     memo_key = (key, str(device))
     if key is not None:
-        cached = _UPLOAD_MEMO.get(memo_key)
+        with _MEMO_LOCK:
+            cached = _UPLOAD_MEMO.get(memo_key)
         if cached is not None and cached.shape[0] >= len(stream.data) + _MAX_FFT:
             return cached
     padded = np.pad(np.ascontiguousarray(stream.data), (0, _MAX_FFT))
     uploaded = torch.from_numpy(padded).to(device)
     if key is not None:
-        while len(_UPLOAD_MEMO) >= _UPLOAD_MEMO_MAX:
-            _UPLOAD_MEMO.pop(next(iter(_UPLOAD_MEMO)))
-        _UPLOAD_MEMO[memo_key] = uploaded
+        with _MEMO_LOCK:
+            while len(_UPLOAD_MEMO) >= _UPLOAD_MEMO_MAX:
+                _UPLOAD_MEMO.pop(next(iter(_UPLOAD_MEMO)))
+            _UPLOAD_MEMO[memo_key] = uploaded
     return uploaded
 
 
@@ -255,6 +265,13 @@ class DeviceMatcher:
         self._dst_key = getattr(dst_stream, "cache_key", None)
         self._pair = StreamPair(self._src_dev, self._dst_dev)
 
+    @property
+    def pair(self) -> "StreamPair":
+        """The device operand pair: lets callers merge this matcher's
+        requests into shared multi-episode rounds (see
+        :mod:`sushi_tpu_torch.season`)."""
+        return self._pair
+
     def plan(self, key, request: SearchRequest) -> "PlannedSearch":
         pat_start, pat_len = self._patterns.bounds(request.group_idx, request.part)
         win_start, win_len, start_time = window_bounds(self._dst, request, pat_len)
@@ -292,12 +309,14 @@ class DeviceMatcher:
         memo_key = None
         if self._src_key is not None and self._dst_key is not None:
             memo_key = (self._src_key, self._dst_key)
-            cached = _DELTA0_MEMO.get(memo_key)
+            with _MEMO_LOCK:
+                cached = _DELTA0_MEMO.get(memo_key)
             if cached is not None:
                 return cached
             stored = stream_cache.load_alignment_seed(*memo_key)
             if stored is not None:
-                _DELTA0_MEMO[memo_key] = stored
+                with _MEMO_LOCK:
+                    _DELTA0_MEMO[memo_key] = stored
                 return stored
 
         coarse = sqdiff.pooled_alignment_peak(
@@ -313,9 +332,10 @@ class DeviceMatcher:
             delta0 = result[refine.key][2] - refine.pat_start
 
         if memo_key is not None:
-            while len(_DELTA0_MEMO) >= 64:
-                _DELTA0_MEMO.pop(next(iter(_DELTA0_MEMO)))
-            _DELTA0_MEMO[memo_key] = delta0
+            with _MEMO_LOCK:
+                while len(_DELTA0_MEMO) >= 64:
+                    _DELTA0_MEMO.pop(next(iter(_DELTA0_MEMO)))
+                _DELTA0_MEMO[memo_key] = delta0
             stream_cache.store_alignment_seed(memo_key[0], memo_key[1], delta0)
         return delta0
 
@@ -338,9 +358,9 @@ class StreamPair:
     """Device-resident (src, dst) buffers one or more searches gather from.
 
     Identity-hashed: two pairs are the same operand set only if they are the
-    same object.  A round takes items of several pairs so that the season
-    slice (not ported yet) can merge episodes' rounds; one episode's sync
-    passes one pair.
+    same object.  A round takes items of several pairs, so the season sync
+    (:mod:`sushi_tpu_torch.season`) merges episodes' requests into shared
+    rounds; one episode's sync passes one pair.
     """
 
     src_dev: object

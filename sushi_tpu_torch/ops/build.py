@@ -2,10 +2,12 @@
 
 ``csrc/*.cu`` compile with ``nvcc`` into one shared library with a plain C
 interface, loaded with ``ctypes``: no ``torch/extension.h``, no ninja, a
-build of seconds.  The library lands in ``build/sushi_tpu_torch/`` beside
-the package (git-ignored), named by a digest of the sources and flags, so
-an edited source rebuilds and a stale library is never loaded.  The build
-runs at first use; a failure raises — there is no fallback.
+build of seconds.  Each source compiles to an object in its own ``nvcc``,
+all started together, and one more links them.  The library lands in
+``build/sushi_tpu_torch/`` beside the package (git-ignored), named by a
+digest of the sources and flags, so an edited source rebuilds and a stale
+library is never loaded.  The build runs at first use; a failure raises —
+there is no fallback.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 from pathlib import Path
 from typing import Optional
@@ -26,7 +29,7 @@ BUILD_DIR = _PACKAGE_DIR.parent / "build" / "sushi_tpu_torch"
 # instructions (wgmma, setmaxnreg) require in later kernels
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _ptr, _int = ctypes.c_void_p, ctypes.c_int
@@ -50,6 +53,9 @@ COARSE_TILE = 4096
 
 _lock = threading.Lock()
 _library: Optional[ctypes.CDLL] = None
+# the wrappers' ``.launches`` counts: season ingest threads launch kernels
+# beside the main thread, and ``+=`` on an attribute is not atomic
+_launch_lock = threading.Lock()
 
 
 def _nvcc() -> str:
@@ -83,15 +89,33 @@ def build() -> Path:
     if target.exists():
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    temp = target.with_suffix(".%d.tmp" % os.getpid())
-    command = [_nvcc(), *NVCC_FLAGS, "-o", str(temp), *map(str, _sources())]
-    result = subprocess.run(command, capture_output=True, text=True, timeout=600)
-    if result.returncode != 0:
-        raise RuntimeError(
-            "CUDA kernel build failed (%s):\n%s" % (" ".join(command), result.stderr[-4000:])
-        )
-    os.replace(temp, target)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as scratch:
+        objects = [os.path.join(scratch, source.stem + ".o") for source in _sources()]
+        compiles = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, str(source)] for source, obj in zip(_sources(), objects)]
+        temp = os.path.join(scratch, target.name)
+        link = [nvcc, *NVCC_FLAGS, "-shared", "-o", temp, *objects]
+        running = [subprocess.Popen(command, stderr=subprocess.PIPE, text=True) for command in compiles]
+        try:
+            for command, process in zip(compiles, running):
+                _, stderr = process.communicate(timeout=600)
+                _check_build(command, process.returncode, stderr)
+            result = subprocess.run(link, capture_output=True, text=True, timeout=600)
+            _check_build(link, result.returncode, result.stderr)
+        finally:
+            for process in running:
+                if process.poll() is None:
+                    process.kill()
+                    process.wait()
+        os.replace(temp, target)
     return target
+
+
+def _check_build(command, returncode: int, stderr: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(
+            "CUDA kernel build failed (%s):\n%s" % (" ".join(command), stderr[-4000:])
+        )
 
 
 def library() -> ctypes.CDLL:
@@ -121,6 +145,12 @@ def check_tensors(what: str, device, specs) -> None:
             raise ValueError("%s: %s must have shape %s, got %s" % (what, name, tuple(shape), tuple(tensor.shape)))
         if not tensor.is_contiguous():
             raise ValueError("%s: %s must be contiguous" % (what, name))
+
+
+def count_launch(wrapper) -> None:
+    """Add one to ``wrapper.launches`` (a kernel wrapper's launch count)."""
+    with _launch_lock:
+        wrapper.launches += 1
 
 
 def check(status: int, what: str) -> None:

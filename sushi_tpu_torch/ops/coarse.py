@@ -97,7 +97,7 @@ def coarse_post(
             batch, n, torch.cuda.current_stream().cuda_stream,
         )
     build.check(status, "coarse_post")
-    coarse_post.launches += 1
+    build.count_launch(coarse_post)
     return block_min, block_arg, first_tight, first_loose
 
 

@@ -92,7 +92,7 @@ def rescore_candidates(
             batch, n, k_count, torch.cuda.current_stream().cuda_stream,
         )
     build.check(status, "rescore")
-    rescore_candidates.launches += 1
+    build.count_launch(rescore_candidates)
     return num, energy
 
 

@@ -182,3 +182,84 @@ def test_one_device_copy_per_round(monkeypatch):
     results = batcher.execute_planned(torch.from_numpy(src), torch.from_numpy(src), planned)
     assert copies == [2]
     assert results["short"][2] == 1000 and results["long"][2] == 5000
+
+
+def test_memo_lock_concurrent_upload_and_seed(tmp_path, monkeypatch):
+    """Eight threads upload and seed the same pair at once, as the season's
+    ingest threads do: one memo entry per stream, the same delta0 on every
+    thread, no exception; then eight threads churn a small upload memo, and
+    the evictions leave every matcher's tensors intact."""
+    import sys
+    import threading
+    from types import SimpleNamespace
+
+    monkeypatch.setenv("SUSHI_STREAM_CACHE", str(tmp_path / "cache"))
+    src, dst = make_pair(str(tmp_path), 22.0, EVENTS, dst_shift=3.417, seed=1)
+    src.cache_key, dst.cache_key = "lock-src-%s" % tmp_path, "lock-dst-%s" % tmp_path
+    spans = batcher.groups_to_spans(make_groups(EVENTS), src)
+
+    def run_threads(target, count=8):
+        errors, threads = [], []
+
+        def guarded(i):
+            try:
+                target(i)
+            except Exception as error:  # reported by the assertion below
+                errors.append(error)
+
+        interval = sys.getswitchinterval()
+        sys.setswitchinterval(1e-6)
+        try:
+            threads = [threading.Thread(target=guarded, args=(i,)) for i in range(count)]
+            for thread in threads:
+                thread.start()
+            for thread in threads:
+                thread.join(timeout=120)
+        finally:
+            sys.setswitchinterval(interval)
+        assert not any(thread.is_alive() for thread in threads)
+        assert errors == []
+
+    matchers, deltas = [None] * 8, [None] * 8
+
+    def ingest(i):
+        batcher.upload_stream(src, "cpu")
+        batcher.upload_stream(dst, "cpu")
+        matchers[i] = batcher.DeviceMatcher(src, dst, spans, device="cpu")
+        deltas[i] = matchers[i].global_alignment_estimate()
+
+    run_threads(ingest)
+    keys = [key for key, _ in batcher._UPLOAD_MEMO]
+    assert keys.count(src.cache_key) == 1 and keys.count(dst.cache_key) == 1
+    assert set(deltas) == {round(3.417 * 12000)}
+    assert batcher._DELTA0_MEMO[(src.cache_key, dst.cache_key)] == deltas[0]
+
+    # many cheap uploads into a small memo: evictions on every thread (without
+    # the lock this fails with a KeyError or "dictionary changed size")
+    monkeypatch.setattr(batcher, "_UPLOAD_MEMO_MAX", 3)
+    monkeypatch.setattr(batcher, "_MAX_FFT", 16)
+
+    def churn(i):
+        data = np.full(64, i, np.uint8)
+        for j in range(3000):
+            batcher.upload_stream(SimpleNamespace(data=data, cache_key="churn-%d-%d" % (i, j)), "cpu")
+
+    run_threads(churn)
+    assert len(batcher._UPLOAD_MEMO) <= 3
+    assert not any(key[0] in (src.cache_key, dst.cache_key) for key in batcher._UPLOAD_MEMO)
+    # the (8.2, 9.9) event searched 2 s either side of its shifted copy
+    pat_start, win_start = src.sample_for_time(8.2), dst.sample_for_time(8.2 + 3.417 - 2.0)
+    probe = batcher.PlannedSearch("probe", pat_start, 20400, win_start, 68400, 0.0, 12000)
+    monkeypatch.setattr(batcher, "_MAX_FFT", 1 << 22)
+    want = batcher.sqdiff.oracle_match(
+        batcher.stream_to_f32(src)[probe.pat_start : probe.pat_start + probe.pat_len],
+        batcher.stream_to_f32(dst)[probe.win_start : probe.win_start + probe.win_len],
+    )
+    for matcher in matchers:
+        assert torch.equal(matcher.pair.src_dev[: len(src.data)], torch.from_numpy(src.data))
+        assert torch.equal(matcher.pair.dst_dev[: len(dst.data)], torch.from_numpy(dst.data))
+        score, _, abs_sample = batcher.execute_planned(
+            matcher.pair.src_dev, matcher.pair.dst_dev, [probe]
+        )["probe"]
+        assert abs_sample - probe.win_start == want[1] == 24000
+        assert score == pytest.approx(want[0], abs=1e-5)

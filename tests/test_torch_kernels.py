@@ -234,3 +234,34 @@ def test_cuda_coarse_kernel_zero_run_matches_plain(cuda_device, n):
     for got_part, want_part in zip(got[1:], want[1:]):
         assert torch.equal(got_part, want_part)
     assert bool((got[0][:, silent] == 2.0).all())
+
+
+def test_launch_count_is_thread_safe():
+    """Kernel wrappers launch from several threads (the season's ingest
+    threads seed while the main thread runs rounds): no count is lost."""
+    import sys
+    import threading
+
+    from sushi_tpu_torch.ops import build
+
+    def wrapper():
+        pass
+
+    wrapper.launches = 0
+
+    def launch_many():
+        for _ in range(20000):
+            build.count_launch(wrapper)
+
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        threads = [threading.Thread(target=launch_many) for _ in range(8)]
+        for thread in threads:
+            thread.start()
+        for thread in threads:
+            thread.join(timeout=120)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not any(thread.is_alive() for thread in threads)
+    assert wrapper.launches == 8 * 20000
