@@ -14,7 +14,8 @@ on the card, then checks it:
    that exact ties occur (rescore rtol 1e-6; coarse post block_min atol
    2e-6, block args and tie seeds equal, the seeds inside their bands, the
    final (score, lag) equal between the kernel and the plain path), timed
-   with CUDA events;
+   with CUDA events beside the bytes each must move and its bound at
+   3.35 TB/s; and the coarse kernel's memory peak at 128x393216;
 3. the headline episode (24 min, 350 events, true shift 3.417 s) through
    the CLI with default flags, cold and then warm: every group shift within
    one 12 kHz sample of the truth, every written .srt line within 1 ms,
@@ -36,8 +37,9 @@ on the card, then checks it:
 
 Every kernel launch counter is set to 0 just before each of phases 3-6
 drives its path and read just after; each phase fails if a kernel was not
-launched.  Any failed check exits non-zero.  The last two lines of
-standard output are the kernels' JSON record and the device JSON.
+launched; the launches per phase are printed at the end.  Any failed
+check exits non-zero.  The last two lines of standard output are the
+kernels' JSON record and the device JSON.
 Fixtures and the stream cache live under ``build/chip_smoke/``
 (git-ignored, recreated each run).  Imports nothing of JAX.
 """
@@ -86,6 +88,11 @@ KERNEL_SHAPES = (
 HEADLINE_SHAPE = "128x393216/49152"
 RESCORE_RTOL = 1e-6
 BLOCK_MIN_ATOL = 2e-6
+# the H100 SXM's device-memory rate (NVIDIA's data sheet): both kernels are
+# bound by the bytes they must move, so their bound is bytes over this rate
+DRAM_BYTES_PER_S = 3.35e12
+# the coarse kernel's memory peak is read at this shape
+PEAK_SHAPE = (128, 393216, 49152)
 # bench.py's recipes: build_fixture (the headline) and _synth_pair (the
 # pathological episode, cut from 480 s / 90 events to 180 s / 36).  The
 # jump is 15 s, as in tests/test_drift.py: on this cut a 12 s jump is
@@ -198,14 +205,62 @@ def kernel_inputs(batch, n, pat_cap, device, seed):
             as_rows(windows), torch.from_numpy(win_lens).to(device)]
 
 
+def coarse_bytes(batch, n):
+    """Bytes coarse_post must move: corr and windows read once, pat_lens,
+    lag_counts and pat_energy read once, the block minima and arguments
+    and the two tie seeds written once."""
+    return batch * (n * 8 + (n // 128) * 8 + 5 * 4)
+
+
+def rescore_bytes(pat_lens, lags, n):
+    """Bytes rescore must move on these inputs: each row's pattern and the
+    union of its candidate spans [lag, lag + pat_len) inside [0, n) read
+    once, pat_lens and the lags read once, num and energy written once."""
+    total = 0
+    for pat_len, row in zip(pat_lens.tolist(), lags.tolist()):
+        spans = sorted((max(lag, 0), min(lag + pat_len, n)) for lag in row)
+        covered, reach = 0, 0
+        for start, end in spans:
+            start = max(start, reach)
+            if end > start:
+                covered += end - start
+                reach = end
+        total += pat_len + covered
+    batch, k_count = lags.shape
+    return 4 * total + batch * 4 + batch * k_count * (4 + 8)
+
+
+def bound_ms(nbytes):
+    return nbytes / DRAM_BYTES_PER_S * 1e3
+
+
+def coarse_peak_bytes(coarse_args):
+    """Device memory one coarse_post call allocates above what is already
+    allocated (its outputs and scratch), by max_memory_allocated."""
+    import torch
+
+    from sushi_tpu_torch.ops import coarse
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    result = coarse.coarse_post(*coarse_args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - before
+    del result
+    return peak
+
+
 def check_kernels(device):
     """Each kernel vs its plain version at the main path's shapes; returns
-    per-kernel records (worst error, times at each shape)."""
+    per-kernel records (worst error, times, bytes and bounds at each
+    shape) and the coarse kernel's memory peak at PEAK_SHAPE."""
     import torch
 
     from sushi_tpu_torch.ops import coarse, rescore, sqdiff
 
-    records = {"rescore": {"max_abs_err": 0.0, "times": {}}, "coarse_post": {"max_abs_err": 0.0, "times": {}}}
+    records = {name: {"max_abs_err": 0.0, "times": {}, "bytes": {}} for name in ("rescore", "coarse_post")}
+    coarse_peak = None
     for index, (batch, n, pat_cap) in enumerate(KERNEL_SHAPES):
         patterns, pat_lens, windows, win_lens = kernel_inputs(batch, n, pat_cap, device, seed=index)
         corr = sqdiff.correlate_rows(patterns, windows, n)
@@ -227,6 +282,7 @@ def check_kernels(device):
             seed_scores = torch.gather(scores, 1, seed.to(torch.int64)[:, None])[:, 0]
             check(bool(torch.all(seed_scores <= row_min + band * scale)),
                   "coarse_post tie seed outside its band at %dx%d" % (batch, n))
+        del scores
 
         kernel_cands = sqdiff.select_candidates(*got, 16)
         plain_cands = sqdiff.select_candidates(*want, 16)
@@ -254,20 +310,38 @@ def check_kernels(device):
                 time_ms(lambda: coarse.coarse_post_plain(*coarse_args)),
             ),
         }
+        nbytes = {
+            "rescore": rescore_bytes(pat_lens.cpu(), kernel_cands.cpu(), n),
+            "coarse_post": coarse_bytes(batch, n),
+        }
+        if (batch, n, pat_cap) == PEAK_SHAPE:
+            coarse_peak = coarse_peak_bytes(coarse_args)
         fft_ms = time_ms(lambda: sqdiff.correlate_rows(patterns, windows, n))
         records["rescore"]["max_abs_err"] = max(records["rescore"]["max_abs_err"], rescore_err)
         records["coarse_post"]["max_abs_err"] = max(records["coarse_post"]["max_abs_err"], coarse_err)
+        shape = "%dx%d/%d" % (batch, n, pat_cap)
         for name, pair in times.items():
-            records[name]["times"]["%dx%d/%d" % (batch, n, pat_cap)] = pair
+            records[name]["times"][shape] = pair
+            records[name]["bytes"][shape] = nbytes[name]
         log(
-            "phase 2: %3dx%-7d pat_cap %-6d rescore %.4f ms (plain %.4f)  coarse_post %.4f ms "
+            "phase 2: %3dx%-7d pat_cap %-7d rescore %.4f ms (plain %.4f)  coarse_post %.4f ms "
             "(plain %.4f)  cuFFT correlation %.4f ms  err rescore %g block_min %g  ok"
             % (batch, n, pat_cap, times["rescore"][0], times["rescore"][1],
                times["coarse_post"][0], times["coarse_post"][1], fft_ms, rescore_err, coarse_err)
         )
-        del patterns, windows, corr, scores
+        for name in ("rescore", "coarse_post"):
+            bound = bound_ms(nbytes[name])
+            log("phase 2: %3dx%-7d pat_cap %-7d %-11s %d bytes, bound %.2f us at 3.35 TB/s, %.4f ms: "
+                "%.1f%% of bound" % (batch, n, pat_cap, name, nbytes[name], bound * 1e3, times[name][0],
+                                     100.0 * bound / times[name][0]))
+        del patterns, windows, corr
         torch.cuda.empty_cache()
-    return records
+    check(coarse_peak is not None, "phase 2: the memory peak shape %s was not checked" % (PEAK_SHAPE,))
+    batch, n, _ = PEAK_SHAPE
+    log("phase 2: coarse_post at %dx%d allocates %d bytes at its peak (outputs and scratch; a design "
+        "that kept P, Z and the scores in device memory would add %d bytes of [B, n+1] and [B, n] scratch)"
+        % (batch, n, coarse_peak, batch * (n + 1) * 12 + batch * n * 4))
+    return records, coarse_peak
 
 
 # ---------------------------------------------------------------------------
@@ -378,7 +452,7 @@ def sync_episode(paths, out_path, device):
 def worst_line_error(what, script_path, out_path, shift):
     """Worst start/end error (s) of the written script's lines against the
     source script's lines moved by the true ``shift``; fails past 1 ms."""
-    from sushi_tpu.text.subs import SrtScript
+    from sushi_tpu_torch.text.subs import SrtScript
 
     source = SrtScript.from_file(script_path).events
     written = SrtScript.from_file(out_path).events
@@ -402,10 +476,10 @@ def check_headline(paths, out_path, results, shift):
 def pathological_parity(paths, device):
     """Per-group shifts of the port's batched device search vs a sequential
     run of the float64 host oracle on the same pair and groups."""
-    from sushi_tpu.align import machine
-    from sushi_tpu.align.groups import prepare_search_groups
-    from sushi_tpu.media.stream import AudioStream
-    from sushi_tpu.text.subs import SrtScript
+    from sushi_tpu_torch.align import machine
+    from sushi_tpu_torch.align.groups import prepare_search_groups
+    from sushi_tpu_torch.media.stream import AudioStream
+    from sushi_tpu_torch.text.subs import SrtScript
     from sushi_tpu_torch.align import batcher
     from sushi_tpu_torch.cli import create_arg_parser
 
@@ -668,7 +742,7 @@ def main():
     log("phase 1: kernels built in %.2f s (%s)" % (time.perf_counter() - started, build.library_path().name))
 
     # phase 2: each kernel vs its plain version at the main path's shapes
-    records = check_kernels(device)
+    records, coarse_peak = check_kernels(device)
 
     # phase 3: the headline episode through the CLI, cold then warm
     started = time.perf_counter()
@@ -748,16 +822,21 @@ def main():
     for name, source, replaces, extra in (
         ("rescore", "sushi_tpu_torch/csrc/rescore.cu", "sushi_tpu/ops/pallas_ssd.py:59", {}),
         ("coarse_post", "sushi_tpu_torch/csrc/coarse_post.cu", "sushi_tpu/ops/pallas_coarse.py:98",
-         {"also_replaces": "sushi_tpu/ops/pallas_coarse.py:199"}),
+         {"also_replaces": "sushi_tpu/ops/pallas_coarse.py:199", "peak_bytes": coarse_peak}),
     ):
         ms, plain_ms = records[name]["times"][HEADLINE_SHAPE]
+        nbytes = records[name]["bytes"][HEADLINE_SHAPE]
+        by_phase = {phase: counts[name] for phase, counts in launches.items()}
+        log("launches of %s per phase: %s" % (name, json.dumps(by_phase)))
         kernels.append(dict(
             name=name, route="cuda", source=source, replaces=replaces, **extra,
-            launches=sum(counts[name] for counts in launches.values()),
-            launches_by_phase={phase: counts[name] for phase, counts in launches.items()},
+            launches=sum(by_phase.values()), launches_by_phase=by_phase,
             max_abs_err=records[name]["max_abs_err"],
-            ms=ms, plain_ms=plain_ms, shape=HEADLINE_SHAPE,
-            times_ms={shape: {"ms": k, "plain_ms": p} for shape, (k, p) in records[name]["times"].items()},
+            ms=ms, plain_ms=plain_ms, bytes=nbytes, bound_ms=bound_ms(nbytes), bound_by="bytes",
+            library_ms=None, shape=HEADLINE_SHAPE,
+            times_ms={shape: {"ms": k, "plain_ms": p, "bytes": records[name]["bytes"][shape],
+                              "bound_ms": bound_ms(records[name]["bytes"][shape])}
+                      for shape, (k, p) in records[name]["times"].items()},
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -1,9 +1,11 @@
 """sushi-tpu-torch: the episode and season syncs of sushi-tpu on PyTorch + CUDA.
 
 A second package beside :mod:`sushi_tpu`, which stays the reference it is
-held against.  Host logic that never touches JAX (script parsing, WAV
-ingest, the search state machine, heuristics) is reused from
-``sushi_tpu`` by import; the device path is ported:
+held against.  The port imports nothing of that package: the host logic
+(script parsing, WAV ingest and its native decoder, the search state
+machine, heuristics) is kept here as copies under the same relative paths
+(``errors``, ``version``, ``text/``, ``media/``, ``align/{machine,groups,
+heuristics,snapping}``, ``native/wavio.cpp``); the device path is ported:
 
 * :mod:`sushi_tpu_torch.ops.sqdiff` — the plain-PyTorch match path (cuFFT
   correlation through ``torch.fft``), the reference of both kernels;
@@ -17,13 +19,13 @@ ingest, the search state machine, heuristics) is reused from
   — the CLI pipeline; :mod:`sushi_tpu_torch.season` — the season batch
   sync, whose episodes share device rounds.
 
-The package never imports ``jax``.
+The package never imports ``jax`` or ``sushi_tpu``.
 """
 
 import torch
 
-from sushi_tpu.errors import SushiError
-from sushi_tpu.version import VERSION, __version__
+from sushi_tpu_torch.errors import SushiError
+from sushi_tpu_torch.version import VERSION, __version__
 
 # Full float32 everywhere: TF32 keeps ~3 decimal digits, far coarser than
 # the 8e-6 plateau tie bands the candidate selection relies on.

@@ -1,2 +1,2 @@
-"""Alignment: the batched device executor of the shift search.  The search
-state machine, grouping and heuristics are reused from ``sushi_tpu.align``."""
+"""Alignment: search-group construction, the shift-search state machine,
+its batched device executor, and post-processing heuristics."""

@@ -5,7 +5,7 @@ sequentially dependent loop (each group's window centers on the previous
 committed shift), kept decision-for-decision exact but executed in a
 handful of large device batches by **speculative replay**:
 
-1. replay the deterministic state machine (``sushi_tpu.align.machine``)
+1. replay the deterministic state machine (:mod:`sushi_tpu_torch.align.machine`)
    against a memo of real results;
 2. on a memo miss, record the request and answer with a grid-snapped
    prediction (:class:`ReplayPredictor`) that emulates the kernel's integer
@@ -14,8 +14,8 @@ handful of large device batches by **speculative replay**:
 3. execute all recorded requests as bucketed device batches, fill the
    memo, and replay again until a replay misses nothing.
 
-The host classes below are copies of the JAX package's (that module
-imports JAX at the top, so it cannot be imported here).  The device part
+The host classes below are copies of the JAX package's (the port imports
+nothing of that package).  The device part
 is ported: :func:`upload_stream`, :class:`DeviceMatcher` and
 :func:`execute_planned_multi`, which runs each round as bucketed
 ``sqdiff.match_from_streams_bounds`` calls with one host->device copy of
@@ -33,11 +33,11 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from sushi_tpu.align import machine
-from sushi_tpu.align.machine import FULL, LEFT, RIGHT, GroupResult, GroupSpan, SearchRequest
-from sushi_tpu.errors import SushiError
-from sushi_tpu.media import stream_cache
-from sushi_tpu.media.stream import PADDING_SECONDS, AudioStream
+from sushi_tpu_torch.align import machine
+from sushi_tpu_torch.align.machine import FULL, LEFT, RIGHT, GroupResult, GroupSpan, SearchRequest
+from sushi_tpu_torch.errors import SushiError
+from sushi_tpu_torch.media import stream_cache
+from sushi_tpu_torch.media.stream import PADDING_SECONDS, AudioStream
 from sushi_tpu_torch import resolve_device
 from sushi_tpu_torch.ops import sqdiff
 

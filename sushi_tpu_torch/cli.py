@@ -13,8 +13,8 @@ import os
 import sys
 import time
 
-from sushi_tpu.errors import SushiError
-from sushi_tpu.version import VERSION
+from sushi_tpu_torch.errors import SushiError
+from sushi_tpu_torch.version import VERSION
 from sushi_tpu_torch.pipeline import run
 
 _log = logging.getLogger("sushi_tpu")

@@ -4,60 +4,85 @@
 // _kernel (rows <= 2^17, VMEM-resident; entry coarse_post_pallas) and
 // _kernel_tiled (rows > 2^17, a 3-phase sequential grid; entry
 // _coarse_post_tiled).  That split existed only for the v5e's VMEM; a GPU
-// has no sequential grid to carry state in, so one tiled design of five
-// launches covers every n (n % 128 == 0):
+// has no sequential grid to carry state in, so one tiled design covers
+// every n (n % 128 == 0) in four launches:
 //
-//   A. tile_sums:  per-(row, 4096-sample tile) sum of w^2 in float64, and
-//                  count of nonzero samples;
-//   B. tile_scan:  per-row exclusive scan of both (the carries);
-//   C. prefix:     P(x) = sum_{j<x} w[j]^2 for x in [0, n], float64, and
-//                  Z(x) = #{j < x : w[j] != 0}, from the carries plus an
-//                  in-tile block scan;
-//   D. scores:     E(u) = P(min(u + pat_len, n)) - P(u) rounded to float32,
-//                  exactly 0 where Z says the span holds no nonzero
-//                  sample, the cv2 score with coarse_scores' conventions
-//                  (den == 0 -> 2.0, u >= lag_count -> 2.0), written to
-//                  global memory, and each 128-lag block's first minimum
-//                  and first lane;
-//   E. ties:       the row minimum over the block minima, then the first
-//                  lag inside the tight (8e-6) and loose (1e-4) bands: the
-//                  first block whose minimum lies in the band holds it, so
-//                  only that block's 128 scores are read.
+//   A. tile_sums:   per-(row, 4096-sample tile) sum of w^2 in float64 and
+//                   count of nonzero samples, read coalesced (4 B/sample);
+//   B. carry_scan:  one block per row scans the tile sums in place into
+//                   exclusive carries, a block-wide scan (not one thread
+//                   per row); entry num_tiles holds the row's totals;
+//   C. scores:      one block per (row, tile of 4096 lags).  It copies
+//                   w over its own lags and the one or two prefix tiles
+//                   that cover [u0 + L, u0 + L + 4096), and corr over its
+//                   lags, into shared memory with cp.async; rebuilds P and
+//                   Z over both ranges there and in registers; computes
+//                   the scores and writes only each 128-lag block's first
+//                   minimum and first lane, and the lag tile's minimum;
+//   D. ties:        one block per row: the row minimum over the tile
+//                   minima, then for each tie band (8e-6 and 1e-4) the
+//                   first tile whose minimum lies in it; that tile's 4096
+//                   scores are recomputed by the same device function as
+//                   in C and the first lag in the band is taken.
 //
-// float64 replaces the TPU's two-float (hi, lo) prefix: the pairwise
-// difference P(u + pat_len) - P(u) stays accurate relative to the window,
-// not the stream.  Squares are exact in float64.  The parallel scan rounds
-// P differently from one thread to the next, so across a run of zeros P is
-// not constant and an all-zero span would get an energy of rounding size
-// (~1e-11) and a huge score instead of den == 0's 2.0; the integer count
-// Z is exact in any order and decides those spans.  The score arithmetic
-// uses the _rn intrinsics (no FMA contraction), op for op the plain
-// PyTorch version (ops/coarse.py), so both round alike.
+// P(x) = sum_{j<x} w[j]^2 (float64) and Z(x) = #{j < x : w[j] != 0} are
+// pure functions of x: P(x) = carry[x / 4096] + the exclusive in-tile
+// prefix at x % 4096, by one scan routine (tile_prefix) with one thread
+// order, for x < n; P(x) = the row total for x >= n (spans past n read
+// P(n)).  So the scores that D recomputes are C's to the bit.  E(u) =
+// P(min(u + L, n)) - P(u) rounded to float32, exactly 0 where Z says the
+// span holds no nonzero sample (a parallel scan is not constant along a
+// run of zeros, so only the integer count decides such spans); the score
+// has coarse_scores' conventions (den == 0 -> 2.0, u >= lag_count -> 2.0)
+// with the _rn intrinsics (no FMA contraction), op for op the plain
+// PyTorch version (ops/coarse.py), so both round alike.  Squares of
+// float32 values are exact in float64, so a contracted w*w + s rounds as
+// the separate ops would.
 //
-// Bound on the H100: device-memory bandwidth.  Per row sample the passes
-// read w twice, write and re-read P (8 B, twice), read corr and write the
-// score: ~44 B for ~20 flops.  The 128-lag block width is semantic (it
-// fixes the candidate set of the exact rescore), not a lane width.
+// Bound on the H100: device-memory bandwidth.  The function must read corr
+// and w once and write the block outputs: ~8 B per sample.  This design
+// moves ~12-16 B per sample (w twice from device memory, the far tiles
+// mostly from L2) and keeps P, Z and the scores out of device memory,
+// where writing and reading them back would move ~44 B per sample.
+// The wrapper's scratch is [B, n/4096 + 1] carries and [B, n/4096] tile
+// minima.  The 128-lag block width is semantic (it fixes the candidate set
+// of the exact rescore), not a lane width.
 
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTile = 4096;            // samples per prefix tile
-constexpr int kScanThreads = 256;      // threads of passes A and C
-constexpr int kPerThread = kTile / kScanThreads;
-constexpr int kLanes = 128;            // candidate block width (semantic)
-constexpr int kTieThreads = 256;
+constexpr int kTile = 4096;                   // samples per prefix tile = lags per score block
+constexpr int kThreads = 256;                 // threads of passes A, C and D
+constexpr int kPerThread = kTile / kThreads;  // consecutive samples (lags) per thread
+constexpr int kWarps = kThreads / 32;
+constexpr int kLanes = 128;                   // candidate block width (semantic)
+constexpr int kScanThreads = 1024;            // threads of pass B
+constexpr float kPastRow = 3.0f;              // above every score (<= 2): lags >= n
+
+struct TileSmem {
+  float near_w[kTile];     // w over the block's own lags
+  float far_w[2][kTile];   // the prefix tiles that cover [u0 + L, u0 + L + 4096)
+  float corr[kTile];
+  // P and Z at u0 + L + k for the k-th lag, at swizzled position
+  // (k % 16) * 256 + k / 16, so that a thread's 16 lags are read without
+  // bank conflicts
+  double far_p[kTile];
+  int far_z[kTile];
+  double warp_p[kWarps];
+  int warp_z[kWarps];
+  float warp_min[kWarps];
+  int warp_int[kWarps];
+};
+
+__device__ __forceinline__ int swizzle(int k) { return (k % kPerThread) * kThreads + k / kPerThread; }
 
 template <typename T>
 __device__ __forceinline__ T warp_sum(T value) {
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    value += __shfl_down_sync(0xffffffffu, value, offset);
-  }
+  for (int offset = 16; offset > 0; offset >>= 1) value += __shfl_down_sync(0xffffffffu, value, offset);
   return value;
 }
 
-// inclusive scan across the lanes of a warp
 template <typename T>
 __device__ __forceinline__ T warp_inclusive_scan(T value, int lane) {
   for (int offset = 1; offset < 32; offset <<= 1) {
@@ -67,10 +92,193 @@ __device__ __forceinline__ T warp_inclusive_scan(T value, int lane) {
   return value;
 }
 
-// A: per-tile sums of w^2 and counts of nonzero samples.
-__global__ void __launch_bounds__(kScanThreads) tile_sums_kernel(
-    const float* __restrict__ windows, double* __restrict__ tile_sums,
-    int* __restrict__ tile_counts, int n, int num_tiles) {
+// 16 bytes global -> shared, asynchronously; zero-filled when !valid
+__device__ __forceinline__ void copy_async16(void* shared, const void* global, bool valid) {
+  const unsigned address = static_cast<unsigned>(__cvta_generic_to_shared(shared));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(address), "l"(global),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// tile `tile` of a row into shared memory, zeros past n (n % 128 == 0, so a
+// group of 4 floats lies wholly inside or wholly past the row)
+__device__ __forceinline__ void load_tile_async(float* shared, const float* row, int tile, int n) {
+  const long long start = (long long)tile * kTile;
+  for (int i = threadIdx.x * 4; i < kTile; i += kThreads * 4) {
+    const bool valid = start + i < n;
+    copy_async16(shared + i, valid ? row + start + i : row, valid);
+  }
+}
+
+__device__ __forceinline__ void wait_async_copies() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+  __syncthreads();
+}
+
+// The one definition of P and Z inside a tile: for the 16 samples this
+// thread owns, x = tile * 4096 + 16 * threadIdx.x + j, p[j] = P(x) and
+// z[j] = Z(x), from the tile's carries and an exclusive block scan in a
+// fixed order.  Every block that needs P(x) calls this, so the same x
+// gives the same bits.
+__device__ __forceinline__ void tile_prefix(const float* tile_w, double carry, int count_carry,
+                                            double* p, int* z, TileSmem& s) {
+  const float4* w4 = reinterpret_cast<const float4*>(tile_w + threadIdx.x * kPerThread);
+  double running = 0.0;
+  int running_count = 0;
+#pragma unroll
+  for (int q = 0; q < kPerThread / 4; ++q) {
+    const float4 v = w4[q];
+    const float values[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      p[4 * q + e] = running;
+      z[4 * q + e] = running_count;
+      const double value = values[e];
+      running += value * value;
+      running_count += values[e] != 0.0f;
+    }
+  }
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const double inclusive = warp_inclusive_scan(running, lane);
+  const int inclusive_count = warp_inclusive_scan(running_count, lane);
+  double exclusive = __shfl_up_sync(0xffffffffu, inclusive, 1);
+  int exclusive_count = __shfl_up_sync(0xffffffffu, inclusive_count, 1);
+  if (lane == 0) {
+    exclusive = 0.0;
+    exclusive_count = 0;
+  }
+  if (lane == 31) {
+    s.warp_p[warp] = inclusive;
+    s.warp_z[warp] = inclusive_count;
+  }
+  __syncthreads();
+  double offset = carry;
+  int count_offset = count_carry;
+  for (int w = 0; w < warp; ++w) {
+    offset += s.warp_p[w];
+    count_offset += s.warp_z[w];
+  }
+  offset += exclusive;
+  count_offset += exclusive_count;
+  __syncthreads();  // warp_p and warp_z are reused by the next call
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    p[j] = offset + p[j];
+    z[j] += count_offset;
+  }
+}
+
+struct Rows {
+  const float* corr;
+  const float* windows;
+  const int* pat_lens;
+  const int* lag_counts;
+  const float* pat_energy;
+  const double* carry;     // [B, num_tiles + 1]
+  const int* count_carry;  // [B, num_tiles + 1]
+  int n;
+  int num_tiles;
+};
+
+// The scores of lags u = tile * 4096 + 16 * threadIdx.x + j (j < 16) of row
+// b; kPastRow for u >= n.  All threads of the block call it together.
+__device__ __forceinline__ void tile_scores(const Rows& r, int b, int tile, TileSmem& s, float* score) {
+  const int n = r.n;
+  const float* row_w = r.windows + (size_t)b * n;
+  const double* row_carry = r.carry + (size_t)b * (r.num_tiles + 1);
+  const int* row_count = r.count_carry + (size_t)b * (r.num_tiles + 1);
+  const int u0 = tile * kTile;
+  const int pat_len = min(max(r.pat_lens[b], 0), n);
+  const long long far_start = (long long)u0 + pat_len;
+  // the prefix tiles over [far_start, far_start + 4096) that start before n
+  // (ops/coarse.py score_block_tiles says the same)
+  const int far_first = far_start < n ? (int)(far_start / kTile) : 0;
+  const int far_count = far_start >= n ? 0
+                        : (far_start % kTile == 0 || (long long)(far_first + 1) * kTile >= n) ? 1 : 2;
+
+  __syncthreads();  // a previous call's readers are done with the buffers
+  load_tile_async(s.near_w, row_w, tile, n);
+  load_tile_async(s.corr, r.corr + (size_t)b * n, tile, n);
+  for (int k = 0; k < far_count; ++k) load_tile_async(s.far_w[k], row_w, far_first + k, n);
+  wait_async_copies();
+
+  const int base = threadIdx.x * kPerThread;
+  const double p_total = row_carry[r.num_tiles];
+  const int z_total = row_count[r.num_tiles];
+#pragma unroll
+  for (int j = 0; j < kPerThread; ++j) {
+    if (far_start + base + j >= n) {  // spans that end at or past n read P(n)
+      s.far_p[swizzle(base + j)] = p_total;
+      s.far_z[swizzle(base + j)] = z_total;
+    }
+  }
+  double p[kPerThread];
+  int z[kPerThread];
+  for (int k = 0; k < far_count; ++k) {
+    const int far_tile = far_first + k;
+    tile_prefix(s.far_w[k], row_carry[far_tile], row_count[far_tile], p, z, s);
+#pragma unroll
+    for (int j = 0; j < kPerThread; ++j) {
+      const long long x = (long long)far_tile * kTile + base + j;
+      const long long at = x - far_start;
+      if (x < n && at >= 0 && at < kTile) {
+        s.far_p[swizzle((int)at)] = p[j];
+        s.far_z[swizzle((int)at)] = z[j];
+      }
+    }
+  }
+  tile_prefix(s.near_w, row_carry[tile], row_count[tile], p, z, s);
+  __syncthreads();  // far_p and far_z are complete
+
+  const float pe = r.pat_energy[b];
+  const int lag_count = r.lag_counts[b];
+  const float4* corr4 = reinterpret_cast<const float4*>(s.corr + base);
+#pragma unroll
+  for (int q = 0; q < kPerThread / 4; ++q) {
+    const float4 v = corr4[q];
+    const float corr[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int j = 4 * q + e;
+      const int u = u0 + base + j;
+      const int at = swizzle(base + j);
+      const float energy = s.far_z[at] == z[j] ? 0.0f : fmaxf((float)(s.far_p[at] - p[j]), 0.0f);
+      const float num = fmaxf(__fadd_rn(__fsub_rn(pe, __fmul_rn(2.0f, corr[e])), energy), 0.0f);
+      const float den = __fsqrt_rn(__fmul_rn(pe, energy));
+      float value = den > 0.0f ? __fdiv_rn(num, den) : 2.0f;
+      if (u >= lag_count) value = 2.0f;
+      score[j] = u < n ? value : kPastRow;
+    }
+  }
+}
+
+__device__ float block_min(float value, TileSmem& s) {
+  for (int offset = 16; offset > 0; offset >>= 1) value = fminf(value, __shfl_xor_sync(0xffffffffu, value, offset));
+  if ((threadIdx.x & 31) == 0) s.warp_min[threadIdx.x >> 5] = value;
+  __syncthreads();
+  float result = s.warp_min[0];
+  for (int w = 1; w < kWarps; ++w) result = fminf(result, s.warp_min[w]);
+  __syncthreads();
+  return result;
+}
+
+__device__ int block_min_int(int value, TileSmem& s) {
+  for (int offset = 16; offset > 0; offset >>= 1) value = min(value, __shfl_xor_sync(0xffffffffu, value, offset));
+  if ((threadIdx.x & 31) == 0) s.warp_int[threadIdx.x >> 5] = value;
+  __syncthreads();
+  int result = s.warp_int[0];
+  for (int w = 1; w < kWarps; ++w) result = min(result, s.warp_int[w]);
+  __syncthreads();
+  return result;
+}
+
+// A: per-tile sums of w^2 and counts of nonzero samples, into the carry
+// arrays (scanned in place by B)
+__global__ void __launch_bounds__(kThreads) tile_sums_kernel(
+    const float* __restrict__ windows, double* __restrict__ carry, int* __restrict__ count_carry,
+    int n, int num_tiles) {
   const int tile = blockIdx.x;
   const int b = blockIdx.y;
   const float* window = windows + (size_t)b * n;
@@ -78,13 +286,18 @@ __global__ void __launch_bounds__(kScanThreads) tile_sums_kernel(
   const int end = min(start + kTile, n);
   double sum = 0.0;
   int count = 0;
-  for (int x = start + threadIdx.x; x < end; x += kScanThreads) {
-    const double w = window[x];
-    sum += w * w;
-    count += w != 0.0;
+  for (int x = start + threadIdx.x * 4; x < end; x += kThreads * 4) {
+    const float4 v = *reinterpret_cast<const float4*>(window + x);
+    const float values[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const double value = values[e];
+      sum += value * value;
+      count += values[e] != 0.0f;
+    }
   }
-  __shared__ double partial[kScanThreads / 32];
-  __shared__ int partial_count[kScanThreads / 32];
+  __shared__ double partial[kWarps];
+  __shared__ int partial_count[kWarps];
   sum = warp_sum(sum);
   count = warp_sum(count);
   if ((threadIdx.x & 31) == 0) {
@@ -95,226 +308,154 @@ __global__ void __launch_bounds__(kScanThreads) tile_sums_kernel(
   if (threadIdx.x == 0) {
     double total = 0.0;
     int total_count = 0;
-    for (int w = 0; w < kScanThreads / 32; ++w) {
+    for (int w = 0; w < kWarps; ++w) {
       total += partial[w];
       total_count += partial_count[w];
     }
-    tile_sums[(size_t)b * num_tiles + tile] = total;
-    tile_counts[(size_t)b * num_tiles + tile] = total_count;
+    carry[(size_t)b * (num_tiles + 1) + tile] = total;
+    count_carry[(size_t)b * (num_tiles + 1) + tile] = total_count;
   }
 }
 
-// B: exclusive scan of the tile sums and counts per row (at most n / 4096
-// tiles); the counts are scanned in place.
-__global__ void tile_scan_kernel(
-    const double* __restrict__ tile_sums, double* __restrict__ tile_carry,
-    int* __restrict__ tile_counts, int num_tiles) {
-  if (threadIdx.x != 0) return;
-  const int b = blockIdx.x;
-  double running = 0.0;
-  int running_count = 0;
-  for (int t = 0; t < num_tiles; ++t) {
-    const size_t at = (size_t)b * num_tiles + t;
-    tile_carry[at] = running;
-    running += tile_sums[at];
-    const int count = tile_counts[at];
-    tile_counts[at] = running_count;
-    running_count += count;
-  }
-}
-
-// C: P(x + 1) = carry(tile) + inclusive in-tile prefix at x; P(0) = 0; Z
-// likewise from the count carry.
-__global__ void __launch_bounds__(kScanThreads) prefix_kernel(
-    const float* __restrict__ windows, const double* __restrict__ tile_carry,
-    const int* __restrict__ count_carry, double* __restrict__ prefix,
-    int* __restrict__ count_prefix, int n, int num_tiles) {
-  const int tile = blockIdx.x;
-  const int b = blockIdx.y;
-  const float* window = windows + (size_t)b * n;
-  double* row_prefix = prefix + (size_t)b * (n + 1);
-  int* row_count = count_prefix + (size_t)b * (n + 1);
-  const int base = tile * kTile + threadIdx.x * kPerThread;
-
-  double local[kPerThread];
-  int local_count[kPerThread];
-  double running = 0.0;
-  int running_count = 0;
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    const int x = base + i;
-    const double w = x < n ? (double)window[x] : 0.0;
-    running += w * w;
-    running_count += w != 0.0;
-    local[i] = running;
-    local_count[i] = running_count;
-  }
-
-  // block-wide exclusive scans of the per-thread totals
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const double inclusive = warp_inclusive_scan(running, lane);
-  const int inclusive_count = warp_inclusive_scan(running_count, lane);
+// B: exclusive scan of the tile sums in place, one block per row, in
+// chunks of 1024 tiles; entry num_tiles gets the row totals
+__global__ void __launch_bounds__(kScanThreads) carry_scan_kernel(
+    double* __restrict__ carry, int* __restrict__ count_carry, int num_tiles) {
   __shared__ double warp_totals[kScanThreads / 32];
   __shared__ int warp_counts[kScanThreads / 32];
-  if (lane == 31) {
-    warp_totals[warp] = inclusive;
-    warp_counts[warp] = inclusive_count;
-  }
-  __syncthreads();
-  double warp_offset = 0.0;
-  int warp_count = 0;
-  for (int w = 0; w < warp; ++w) {
-    warp_offset += warp_totals[w];
-    warp_count += warp_counts[w];
-  }
-  const size_t at = (size_t)b * num_tiles + tile;
-  const double offset = tile_carry[at] + warp_offset + (inclusive - running);
-  const int count_offset = count_carry[at] + warp_count + (inclusive_count - running_count);
-
-#pragma unroll
-  for (int i = 0; i < kPerThread; ++i) {
-    const int x = base + i;
-    if (x < n) {
-      row_prefix[x + 1] = offset + local[i];
-      row_count[x + 1] = count_offset + local_count[i];
+  double* row = carry + (size_t)blockIdx.x * (num_tiles + 1);
+  int* row_count = count_carry + (size_t)blockIdx.x * (num_tiles + 1);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  double running = 0.0;  // the same in every thread
+  int running_count = 0;
+  for (int start = 0; start < num_tiles; start += kScanThreads) {
+    const int t = start + threadIdx.x;
+    const double value = t < num_tiles ? row[t] : 0.0;
+    const int count = t < num_tiles ? row_count[t] : 0;
+    const double inclusive = warp_inclusive_scan(value, lane);
+    const int inclusive_count = warp_inclusive_scan(count, lane);
+    if (lane == 31) {
+      warp_totals[warp] = inclusive;
+      warp_counts[warp] = inclusive_count;
     }
+    __syncthreads();
+    double offset = running;
+    int count_offset = running_count;
+    for (int w = 0; w < warp; ++w) {
+      offset += warp_totals[w];
+      count_offset += warp_counts[w];
+    }
+    if (t < num_tiles) {
+      row[t] = offset + (inclusive - value);
+      row_count[t] = count_offset + (inclusive_count - count);
+    }
+    for (int w = 0; w < kScanThreads / 32; ++w) {
+      running += warp_totals[w];
+      running_count += warp_counts[w];
+    }
+    __syncthreads();
   }
-  if (tile == 0 && threadIdx.x == 0) {
-    row_prefix[0] = 0.0;
-    row_count[0] = 0;
+  if (threadIdx.x == 0) {
+    row[num_tiles] = running;
+    row_count[num_tiles] = running_count;
   }
 }
 
-// D: scores and per-block first minimum / first lane; one block per 128 lags.
-__global__ void __launch_bounds__(kLanes) scores_kernel(
-    const float* __restrict__ corr, const double* __restrict__ prefix,
-    const int* __restrict__ count_prefix, const int* __restrict__ pat_lens,
-    const int* __restrict__ lag_counts,
-    const float* __restrict__ pat_energy, float* __restrict__ scores,
-    float* __restrict__ block_min, int* __restrict__ block_arg, int n) {
-  const int block = blockIdx.x;
+// C: scores of one (row, lag tile); each 128-lag block's first minimum and
+// first lane, and the lag tile's minimum
+__global__ void __launch_bounds__(kThreads) scores_kernel(
+    Rows r, float* __restrict__ block_min_out, int* __restrict__ block_arg_out,
+    float* __restrict__ tile_min_out) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  TileSmem& s = *reinterpret_cast<TileSmem*>(smem_raw);
+  const int tile = blockIdx.x;
   const int b = blockIdx.y;
-  const int lane_id = threadIdx.x;
-  const int u = block * kLanes + lane_id;
-  const double* row_prefix = prefix + (size_t)b * (n + 1);
-  const int* row_count = count_prefix + (size_t)b * (n + 1);
+  float score[kPerThread];
+  tile_scores(r, b, tile, s, score);
 
-  const int end = (int)min((long long)u + max(pat_lens[b], 0), (long long)n);
-  const float energy =
-      row_count[end] == row_count[u] ? 0.0f : fmaxf((float)(row_prefix[end] - row_prefix[u]), 0.0f);
-  const float pe = pat_energy[b];
-  const float c = corr[(size_t)b * n + u];
-  const float num = fmaxf(__fadd_rn(__fsub_rn(pe, __fmul_rn(2.0f, c)), energy), 0.0f);
-  const float den = __fsqrt_rn(__fmul_rn(pe, energy));
-  float score = den > 0.0f ? __fdiv_rn(num, den) : 2.0f;
-  if (u >= lag_counts[b]) score = 2.0f;
-  scores[(size_t)b * n + u] = score;
-
-  // first minimum of the block: min value, lowest lane on ties
-  float value = score;
-  int arg = lane_id;
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    const float other = __shfl_down_sync(0xffffffffu, value, offset);
-    const int other_arg = __shfl_down_sync(0xffffffffu, arg, offset);
-    if (other < value || (other == value && other_arg < arg)) {
+  // first minimum of this thread's 16 lags, then of its 128-lag block (8
+  // threads): min value, lowest lane on ties
+  float value = score[0];
+  int arg = 0;
+#pragma unroll
+  for (int j = 1; j < kPerThread; ++j) {
+    if (score[j] < value) {
+      value = score[j];
+      arg = j;
+    }
+  }
+  int lane = (threadIdx.x % (kLanes / kPerThread)) * kPerThread + arg;
+  for (int offset = 1; offset < kLanes / kPerThread; offset <<= 1) {
+    const float other = __shfl_xor_sync(0xffffffffu, value, offset);
+    const int other_lane = __shfl_xor_sync(0xffffffffu, lane, offset);
+    if (other < value || (other == value && other_lane < lane)) {
       value = other;
-      arg = other_arg;
+      lane = other_lane;
     }
   }
-  __shared__ float warp_min[kLanes / 32];
-  __shared__ int warp_arg[kLanes / 32];
-  if ((lane_id & 31) == 0) {
-    warp_min[lane_id >> 5] = value;
-    warp_arg[lane_id >> 5] = arg;
+  const int num_blocks = r.n / kLanes;
+  const int block = tile * (kTile / kLanes) + threadIdx.x / (kLanes / kPerThread);
+  if (threadIdx.x % (kLanes / kPerThread) == 0 && block < num_blocks) {
+    block_min_out[(size_t)b * num_blocks + block] = value;
+    block_arg_out[(size_t)b * num_blocks + block] = lane;
   }
-  __syncthreads();
-  if (lane_id == 0) {
-    for (int w = 1; w < kLanes / 32; ++w) {
-      if (warp_min[w] < value) {  // strict: the lower warp keeps ties
-        value = warp_min[w];
-        arg = warp_arg[w];
-      }
-    }
-    const size_t out = (size_t)b * (n / kLanes) + block;
-    block_min[out] = value;
-    block_arg[out] = arg;
-  }
+  const float tile_min = block_min(value, s);
+  if (threadIdx.x == 0) tile_min_out[(size_t)b * r.num_tiles + tile] = tile_min;
 }
 
-__device__ float block_reduce_min(float value, float* shared) {
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    value = fminf(value, __shfl_down_sync(0xffffffffu, value, offset));
+// first lag of `tile` whose score is <= threshold (scores from tile_scores)
+__device__ __forceinline__ int first_lag_in_band(const float* score, int tile, float threshold, TileSmem& s) {
+  int first = kTile;
+#pragma unroll
+  for (int j = kPerThread - 1; j >= 0; --j) {
+    if (score[j] <= threshold) first = threadIdx.x * kPerThread + j;
   }
-  if ((threadIdx.x & 31) == 0) shared[threadIdx.x >> 5] = value;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < kTieThreads / 32; ++w) value = fminf(value, shared[w]);
-    shared[0] = value;
-  }
-  __syncthreads();
-  const float result = shared[0];
-  __syncthreads();
-  return result;
+  return tile * kTile + block_min_int(first, s);
 }
 
-__device__ int block_reduce_min_int(int value, int* shared) {
-  for (int offset = 16; offset > 0; offset >>= 1) {
-    value = min(value, __shfl_down_sync(0xffffffffu, value, offset));
-  }
-  if ((threadIdx.x & 31) == 0) shared[threadIdx.x >> 5] = value;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    for (int w = 1; w < kTieThreads / 32; ++w) value = min(value, shared[w]);
-    shared[0] = value;
-  }
-  __syncthreads();
-  const int result = shared[0];
-  __syncthreads();
-  return result;
-}
-
-// First lag with score <= threshold (0 when none, like argmax of an
-// all-false mask).  The first block whose minimum is <= threshold holds it.
-__device__ int first_in_band(
-    const float* row_scores, const float* row_block_min, int num_blocks, float threshold,
-    int* shared_int) {
-  int first_block = num_blocks;
-  for (int j = threadIdx.x; j < num_blocks; j += kTieThreads) {
-    if (row_block_min[j] <= threshold) {
-      first_block = j;
+// first tile whose minimum is <= threshold, num_tiles when none
+__device__ int first_tile_in_band(const float* row_tile_min, int num_tiles, float threshold, TileSmem& s) {
+  int first = num_tiles;
+  for (int t = threadIdx.x; t < num_tiles; t += kThreads) {
+    if (row_tile_min[t] <= threshold) {
+      first = t;
       break;
     }
   }
-  first_block = block_reduce_min_int(first_block, shared_int);
-  if (first_block >= num_blocks) return 0;
-  int lane = kLanes;
-  if (threadIdx.x < kLanes && row_scores[(size_t)first_block * kLanes + threadIdx.x] <= threshold) {
-    lane = threadIdx.x;
-  }
-  lane = block_reduce_min_int(lane, shared_int);
-  return lane < kLanes ? first_block * kLanes + lane : 0;
+  return block_min_int(first, s);
 }
 
-// E: row minimum, then the tight / loose tie seeds; one block per row.
-__global__ void __launch_bounds__(kTieThreads) ties_kernel(
-    const float* __restrict__ scores, const float* __restrict__ block_min,
-    int* __restrict__ first_tight, int* __restrict__ first_loose, int n) {
-  __shared__ float shared_float[kTieThreads / 32];
-  __shared__ int shared_int[kTieThreads / 32];
+// D: row minimum, then the tight / loose tie seeds; one block per row.  A
+// seed is the first lag inside its band (0 when none, like argmax of an
+// all-false mask); the first tile whose minimum lies in the band holds it.
+__global__ void __launch_bounds__(kThreads) ties_kernel(
+    Rows r, const float* __restrict__ tile_min, int* __restrict__ first_tight,
+    int* __restrict__ first_loose) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  TileSmem& s = *reinterpret_cast<TileSmem*>(smem_raw);
   const int b = blockIdx.x;
-  const int num_blocks = n / kLanes;
-  const float* row_block_min = block_min + (size_t)b * num_blocks;
-  const float* row_scores = scores + (size_t)b * n;
-
-  float value = 3.0f;  // scores are <= 2
-  for (int j = threadIdx.x; j < num_blocks; j += kTieThreads) value = fminf(value, row_block_min[j]);
-  const float gmin = block_reduce_min(value, shared_float);
+  const float* row_tile_min = tile_min + (size_t)b * r.num_tiles;
+  float value = kPastRow;
+  for (int t = threadIdx.x; t < r.num_tiles; t += kThreads) value = fminf(value, row_tile_min[t]);
+  const float gmin = block_min(value, s);
   const float scale = __fadd_rn(1.0f, fabsf(gmin));
   const float tight = __fadd_rn(gmin, __fmul_rn(8e-6f, scale));
   const float loose = __fadd_rn(gmin, __fmul_rn(1e-4f, scale));
-  const int tight_lag = first_in_band(row_scores, row_block_min, num_blocks, tight, shared_int);
-  const int loose_lag = first_in_band(row_scores, row_block_min, num_blocks, loose, shared_int);
+  // loose >= tight, so the loose band's tile comes first or is the same
+  const int loose_tile = first_tile_in_band(row_tile_min, r.num_tiles, loose, s);
+  const int tight_tile = first_tile_in_band(row_tile_min, r.num_tiles, tight, s);
+  int loose_lag = 0;
+  int tight_lag = 0;
+  float score[kPerThread];
+  if (loose_tile < r.num_tiles) {
+    tile_scores(r, b, loose_tile, s, score);
+    loose_lag = first_lag_in_band(score, loose_tile, loose, s);
+  }
+  if (tight_tile < r.num_tiles) {
+    if (tight_tile != loose_tile) tile_scores(r, b, tight_tile, s, score);
+    tight_lag = first_lag_in_band(score, tight_tile, tight, s);
+  }
   if (threadIdx.x == 0) {
     first_tight[b] = tight_lag;
     first_loose[b] = loose_lag;
@@ -326,24 +467,25 @@ __global__ void __launch_bounds__(kTieThreads) ties_kernel(
 extern "C" int sushi_coarse_post(
     const float* corr, const float* windows, const int* pat_lens, const int* lag_counts,
     const float* pat_energy, float* block_min, int* block_arg, int* first_tight,
-    int* first_loose, double* tile_sums, double* tile_carry, int* tile_counts, double* prefix,
-    int* count_prefix, float* scores, int batch, int n, void* stream_ptr) {
+    int* first_loose, double* carry, int* count_carry, float* tile_min, int batch, int n,
+    void* stream_ptr) {
   if (batch <= 0 || n <= 0) return static_cast<int>(cudaGetLastError());
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
   const int num_tiles = (n + kTile - 1) / kTile;
+  const int smem = static_cast<int>(sizeof(TileSmem));
   cudaError_t status;
+  if ((status = cudaFuncSetAttribute(scores_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) != cudaSuccess)
+    return static_cast<int>(status);
+  if ((status = cudaFuncSetAttribute(ties_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) != cudaSuccess)
+    return static_cast<int>(status);
+  const Rows rows{corr, windows, pat_lens, lag_counts, pat_energy, carry, count_carry, n, num_tiles};
 
-  tile_sums_kernel<<<dim3(num_tiles, batch), kScanThreads, 0, stream>>>(
-      windows, tile_sums, tile_counts, n, num_tiles);
+  tile_sums_kernel<<<dim3(num_tiles, batch), kThreads, 0, stream>>>(windows, carry, count_carry, n, num_tiles);
   if ((status = cudaGetLastError()) != cudaSuccess) return static_cast<int>(status);
-  tile_scan_kernel<<<batch, 32, 0, stream>>>(tile_sums, tile_carry, tile_counts, num_tiles);
+  carry_scan_kernel<<<batch, kScanThreads, 0, stream>>>(carry, count_carry, num_tiles);
   if ((status = cudaGetLastError()) != cudaSuccess) return static_cast<int>(status);
-  prefix_kernel<<<dim3(num_tiles, batch), kScanThreads, 0, stream>>>(
-      windows, tile_carry, tile_counts, prefix, count_prefix, n, num_tiles);
+  scores_kernel<<<dim3(num_tiles, batch), kThreads, smem, stream>>>(rows, block_min, block_arg, tile_min);
   if ((status = cudaGetLastError()) != cudaSuccess) return static_cast<int>(status);
-  scores_kernel<<<dim3(n / kLanes, batch), kLanes, 0, stream>>>(
-      corr, prefix, count_prefix, pat_lens, lag_counts, pat_energy, scores, block_min, block_arg, n);
-  if ((status = cudaGetLastError()) != cudaSuccess) return static_cast<int>(status);
-  ties_kernel<<<batch, kTieThreads, 0, stream>>>(scores, block_min, first_tight, first_loose, n);
+  ties_kernel<<<batch, kThreads, smem, stream>>>(rows, tile_min, first_tight, first_loose);
   return static_cast<int>(cudaGetLastError());
 }

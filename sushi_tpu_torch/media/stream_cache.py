@@ -1,0 +1,252 @@
+"""Analysis-buffer memoization and parallel stream ingest.
+
+The analysis buffer is a deterministic pure function of (WAV bytes,
+sample_rate, sample_type), but decoding + downsampling + normalizing a
+24-minute episode costs ~0.5 s per stream even through the fused C++ path.
+The reference re-pays that on every run (Sushi's wav.py:108-162 has
+no cache; its regression harness budgets 0.7 s per load,
+regression-tests.py:140-158).  We memoize the finished buffer to disk keyed
+by the source file's identity (path, size, mtime) so repeat syncs skip the
+decode entirely, and ingest the src/dst pair on two threads when cold (the
+native ctypes call releases the GIL).
+
+Cache layout: ``<dir>/<key>.npy`` (the buffer) and ``<key>.meta.json``
+(sample_count / rate / padding).  The directory is bounded by
+``_MAX_ENTRIES`` (LRU by file mtime).  Disable with SUSHI_STREAM_CACHE=off;
+relocate with SUSHI_STREAM_CACHE=<dir>.
+"""
+
+from __future__ import annotations
+
+import hashlib
+import json
+import logging
+import os
+import tempfile
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Optional, Tuple
+
+import numpy as np
+
+from sushi_tpu_torch.media.stream import AudioStream
+
+_log = logging.getLogger("sushi_tpu")
+
+# Cumulative cold-path stage seconds (decode / cache read), summed across
+# streams and threads, so a measurement can say WHERE a cold sync's time
+# went.
+INGEST_STATS = {"decode_seconds": 0.0, "cache_read_seconds": 0.0}
+# pair loads run on overlapped threads (and season ingest on a thread pool);
+# a bare ``dict[k] += v`` is a read-modify-write the GIL can split, silently
+# dropping one thread's stage time from the artifact
+_STATS_LOCK = threading.Lock()
+
+
+def _add_stat(key: str, seconds: float) -> None:
+    with _STATS_LOCK:
+        INGEST_STATS[key] += seconds
+
+
+def reset_ingest_stats() -> None:
+    with _STATS_LOCK:
+        for key in INGEST_STATS:
+            INGEST_STATS[key] = 0.0
+
+
+_FORMAT_VERSION = 1
+# 64 entries keeps a 24-episode season's 48 prepared streams warm on disk
+_MAX_ENTRIES = 64
+
+
+def cache_dir() -> Optional[str]:
+    configured = os.environ.get("SUSHI_STREAM_CACHE")
+    if configured == "off":
+        return None
+    if configured:
+        return configured
+    return os.path.join(os.path.expanduser("~"), ".cache", "sushi_tpu", "streams")
+
+
+def stream_key(path: str, sample_rate: int, sample_type: str) -> Optional[str]:
+    """Identity of the prepared buffer; None if the file can't be stat'd."""
+    try:
+        stat = os.stat(path)
+    except OSError:
+        return None
+    raw = json.dumps(
+        [
+            _FORMAT_VERSION,
+            os.path.abspath(path),
+            stat.st_size,
+            stat.st_mtime_ns,
+            sample_rate,
+            sample_type,
+        ]
+    )
+    return hashlib.sha256(raw.encode()).hexdigest()[:32]
+
+
+def _from_parts(
+    data: np.ndarray, sample_rate: int, sample_count: int, padding_size: int, key: Optional[str]
+) -> AudioStream:
+    stream = AudioStream.__new__(AudioStream)
+    stream.data = data
+    stream.sample_rate = sample_rate
+    stream.sample_count = sample_count
+    stream.padding_size = padding_size
+    stream.cache_key = key
+    return stream
+
+
+def _try_read(directory: str, key: str) -> Optional[AudioStream]:
+    buffer_path = os.path.join(directory, key + ".npy")
+    meta_path = os.path.join(directory, key + ".meta.json")
+    try:
+        with open(meta_path, "r", encoding="utf-8") as handle:
+            meta = json.load(handle)
+        # memory-map: a warm sync whose device buffers are already resident
+        # barely touches the host buffer, so don't pay a full read up front
+        data = np.load(buffer_path, mmap_mode="r")
+        now = time.time()
+        os.utime(buffer_path, (now, now))  # LRU touch
+        if len(data) != int(meta["buffer_len"]):
+            return None
+        return _from_parts(
+            data, int(meta["sample_rate"]), int(meta["sample_count"]), int(meta["padding_size"]), key
+        )
+    except (OSError, ValueError, KeyError):
+        # any malformed entry (missing keys included) is a cache miss
+        return None
+
+
+def _write(directory: str, key: str, stream: AudioStream) -> None:
+    try:
+        os.makedirs(directory, exist_ok=True)
+        # suffix must end in '.npy': np.save appends '.npy' to other names,
+        # which would leave the original mkstemp file as a permanent orphan
+        # (and orphans from crashes still match _evict's '.npy' scan)
+        fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp.npy")
+        os.close(fd)
+        np.save(tmp, stream.data, allow_pickle=False)
+        saved = tmp
+        meta = {
+            "sample_rate": stream.sample_rate,
+            "sample_count": stream.sample_count,
+            "padding_size": stream.padding_size,
+            "buffer_len": len(stream.data),
+            "dtype": str(stream.data.dtype),
+        }
+        with open(os.path.join(directory, key + ".meta.json"), "w", encoding="utf-8") as handle:
+            json.dump(meta, handle)
+        os.replace(saved, os.path.join(directory, key + ".npy"))
+        _evict(directory)
+    except OSError as error:
+        _log.debug("stream cache write failed: %s", error)
+
+
+def _evict(directory: str) -> None:
+    try:
+        entries = sorted(
+            (entry for entry in os.scandir(directory) if entry.name.endswith(".npy")),
+            key=lambda entry: entry.stat().st_mtime,
+        )
+        for stale in entries[: max(0, len(entries) - _MAX_ENTRIES)]:
+            meta = os.path.join(directory, stale.name[: -len(".npy")] + ".meta.json")
+            os.unlink(stale.path)
+            if os.path.exists(meta):
+                os.unlink(meta)
+        seeds = sorted(
+            (entry for entry in os.scandir(directory) if entry.name.startswith("align0_")),
+            key=lambda entry: entry.stat().st_mtime,
+        )
+        for stale in seeds[: max(0, len(seeds) - 4 * _MAX_ENTRIES)]:
+            os.unlink(stale.path)
+    except OSError:
+        pass
+
+
+def _seed_path(directory: str, src_key: str, dst_key: str) -> str:
+    return os.path.join(directory, "align0_%s_%s.json" % (src_key, dst_key))
+
+
+def load_alignment_seed(src_key: str, dst_key: str) -> Optional[int]:
+    """Memoized whole-stream alignment estimate for a stream pair.
+
+    The seed is a pure function of the two prepared buffers, so it is keyed
+    by their cache identities and survives across processes — a warm sync
+    skips the pooled device correlation entirely.
+    """
+    directory = cache_dir()
+    if not directory:
+        return None
+    try:
+        with open(_seed_path(directory, src_key, dst_key), "r", encoding="utf-8") as handle:
+            return int(json.load(handle)["delta0"])
+    except (OSError, ValueError, KeyError):
+        return None
+
+
+def store_alignment_seed(src_key: str, dst_key: str, delta0: int) -> None:
+    directory = cache_dir()
+    if not directory:
+        return
+    try:
+        os.makedirs(directory, exist_ok=True)
+        path = _seed_path(directory, src_key, dst_key)
+        # unique tmp name (mkstemp) like _write: concurrent processes
+        # storing the same pair must not interleave writes into one shared
+        # ".tmp" file and publish corrupt JSON
+        fd, tmp = tempfile.mkstemp(dir=directory, suffix=".tmp")
+        with os.fdopen(fd, "w", encoding="utf-8") as handle:
+            json.dump({"delta0": int(delta0)}, handle)
+        os.replace(tmp, path)
+    except OSError as error:
+        _log.debug("alignment seed write failed: %s", error)
+
+
+def load_stream(
+    path: str,
+    sample_rate: int = 12000,
+    sample_type: str = "uint8",
+    use_native: bool = True,
+) -> AudioStream:
+    """AudioStream via the disk memo; falls through to a real ingest.
+
+    The JAX package's ``upload=True`` hook (upload before the cache write)
+    is not copied: the port uploads when a ``DeviceMatcher`` is built.
+    """
+    directory = cache_dir()
+    key = stream_key(path, sample_rate, sample_type) if directory else None
+    if directory and key:
+        t0 = time.time()
+        cached = _try_read(directory, key)
+        _add_stat("cache_read_seconds", time.time() - t0)
+        if cached is not None:
+            _log.info("Loaded prepared stream for %s from cache", path)
+            return cached
+    t0 = time.time()
+    stream = AudioStream(path, sample_rate, sample_type, use_native=use_native)
+    _add_stat("decode_seconds", time.time() - t0)
+    stream.cache_key = key
+    if directory and key:
+        _write(directory, key, stream)
+    return stream
+
+
+def load_pair(
+    src_path: str,
+    dst_path: str,
+    sample_rate: int = 12000,
+    sample_type: str = "uint8",
+    use_native: bool = True,
+) -> Tuple[AudioStream, AudioStream]:
+    """Load both streams concurrently (ctypes ingest releases the GIL)."""
+    if src_path == dst_path:
+        stream = load_stream(src_path, sample_rate, sample_type, use_native)
+        return stream, stream
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        src_future = pool.submit(load_stream, src_path, sample_rate, sample_type, use_native)
+        dst_future = pool.submit(load_stream, dst_path, sample_rate, sample_type, use_native)
+        return src_future.result(), dst_future.result()

@@ -36,20 +36,18 @@ _ptr, _int = ctypes.c_void_p, ctypes.c_int
 # every entry takes device pointers + ints + the CUDA stream, and returns
 # cudaGetLastError() after its launches
 _SIGNATURES = {
-    # patterns, windows, pat_lens, lags, num, energy, batch, n, k_count, stream
-    "sushi_rescore": (_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _ptr),
+    # patterns, windows, pat_lens, lags, num, energy, num_part, energy_part,
+    # batch, n, k_count, chunk, chunks, stream
+    "sushi_rescore": (_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _int, _ptr),
     # corr, windows, pat_lens, lag_counts, pat_energy,
     # block_min, block_arg, first_tight, first_loose,
-    # tile_sums, tile_carry, tile_counts, prefix, count_prefix, scores,
-    # batch, n, stream
+    # carry, count_carry, tile_min, batch, n, stream
     "sushi_coarse_post": (
         _ptr, _ptr, _ptr, _ptr, _ptr,
         _ptr, _ptr, _ptr, _ptr,
-        _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _ptr,
+        _ptr, _ptr, _ptr, _int, _int, _ptr,
     ),
 }
-# samples per prefix tile of the coarse kernel (csrc/coarse_post.cu)
-COARSE_TILE = 4096
 
 _lock = threading.Lock()
 _library: Optional[ctypes.CDLL] = None

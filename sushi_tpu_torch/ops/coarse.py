@@ -8,14 +8,18 @@ the sliding window energy, the normalized-SSD score at every lag, the
 valid-lag mask, each 128-lag block's first minimum and first lane, and
 the first lag inside the tight / loose tie bands around the row minimum.
 
-The kernel (``csrc/coarse_post.cu``) is bound by memory bandwidth: five
-launches — tile sums of w² (and nonzero counts), a scan of the tile
-carries, the float64 prefix P (and the integer count prefix that marks
-all-zero spans, see :func:`sqdiff.sliding_energy`), the scores with their
-block minima, and the tie seeds, which read only the one 128-lag block
-that holds each band's first lag.  It materializes P (float64), the
-counts and the scores in device memory; keeping them on chip is later
-work.
+The kernel (``csrc/coarse_post.cu``) is bound by memory bandwidth; four
+launches: tile sums of w² (and nonzero counts) per 4096-sample tile, a
+block-wide scan of them into per-row carries, one fused score pass per
+(row, tile of 4096 lags) that rebuilds the float64 prefix P and the
+integer count prefix Z (which marks all-zero spans, see
+:func:`sqdiff.sliding_energy`) in shared memory from the carries and
+writes only the block outputs and one minimum per lag tile, and the tie
+seeds, which recompute the 4096 scores of the one lag tile that holds
+each band's first lag.  P, Z and the scores never reach device memory:
+the only scratch is ``[B, n/4096 + 1]`` carries and ``[B, n/4096]`` tile
+minima.  :func:`lag_tiles` and :func:`score_block_tiles` state the launch
+geometry the kernel uses.
 """
 
 from __future__ import annotations
@@ -25,6 +29,31 @@ from typing import Tuple
 import torch
 
 from sushi_tpu_torch.ops import build, sqdiff
+
+
+TILE = 4096  # samples per prefix tile and lags per score block (csrc/coarse_post.cu kTile)
+
+
+def lag_tiles(n: int) -> int:
+    """Prefix tiles of a row of n samples, which is also the score pass's
+    blocks per row (one per 4096 lags; the last may be ragged)."""
+    return -(-n // TILE)
+
+
+def score_block_tiles(n: int, pat_len: int, lag_tile: int) -> Tuple[int, Tuple[int, ...]]:
+    """The prefix tiles the score block of ``lag_tile`` loads for a row of
+    pattern length ``pat_len``: its own tile (P(u) for its lags u) and the
+    one or two tiles that cover [u0 + L, u0 + L + 4096) below n (P at the
+    span ends; ends at or past n read the row total).  The kernel's
+    ``tile_scores`` computes the same."""
+    pat_len = min(max(pat_len, 0), n)
+    far_start = lag_tile * TILE + pat_len
+    if far_start >= n:
+        return lag_tile, ()
+    first = far_start // TILE
+    if far_start % TILE == 0 or (first + 1) * TILE >= n:
+        return lag_tile, (first,)
+    return lag_tile, (first, first + 1)
 
 
 def coarse_post_plain(
@@ -72,7 +101,7 @@ def coarse_post(
         ("lag_counts", lag_counts, torch.int32, (batch,)),
         ("pat_energy", pat_energy, torch.float32, (batch,)),
     ))
-    num_tiles = -(-n // build.COARSE_TILE)
+    num_tiles = lag_tiles(n)
 
     def empty(*shape, dtype):
         return torch.empty(*shape, dtype=dtype, device=corr.device)
@@ -81,19 +110,15 @@ def coarse_post(
     block_arg = empty(batch, n // sqdiff.LANES, dtype=torch.int32)
     first_tight = empty(batch, dtype=torch.int32)
     first_loose = empty(batch, dtype=torch.int32)
-    tile_sums = empty(batch, num_tiles, dtype=torch.float64)
-    tile_carry = empty(batch, num_tiles, dtype=torch.float64)
-    tile_counts = empty(batch, num_tiles, dtype=torch.int32)
-    prefix = empty(batch, n + 1, dtype=torch.float64)
-    count_prefix = empty(batch, n + 1, dtype=torch.int32)
-    scores = empty(batch, n, dtype=torch.float32)
+    carry = empty(batch, num_tiles + 1, dtype=torch.float64)
+    count_carry = empty(batch, num_tiles + 1, dtype=torch.int32)
+    tile_min = empty(batch, num_tiles, dtype=torch.float32)
     with torch.cuda.device(corr.device):
         status = build.library().sushi_coarse_post(
             corr.data_ptr(), windows.data_ptr(), pat_lens.data_ptr(), lag_counts.data_ptr(),
             pat_energy.data_ptr(), block_min.data_ptr(), block_arg.data_ptr(),
-            first_tight.data_ptr(), first_loose.data_ptr(), tile_sums.data_ptr(),
-            tile_carry.data_ptr(), tile_counts.data_ptr(), prefix.data_ptr(),
-            count_prefix.data_ptr(), scores.data_ptr(),
+            first_tight.data_ptr(), first_loose.data_ptr(), carry.data_ptr(),
+            count_carry.data_ptr(), tile_min.data_ptr(),
             batch, n, torch.cuda.current_stream().cuda_stream,
         )
     build.check(status, "coarse_post")

@@ -11,9 +11,14 @@ Out-of-range candidates (lag + pat_len > win_len) read the zero padding
 and are invalidated by the caller (``sqdiff.exact_select``).
 
 The kernel (``csrc/rescore.cu``) is bound by memory bandwidth: one block
-per (candidate, row) streams the pattern and the window span, with
-float32 terms and float64 sums; the JAX package's TPU gate at 2^19 samples
-(VMEM) does not apply — it takes every n.
+per (row, chunk of C pattern terms) holds its pattern chunk in shared
+memory and streams the row's K candidate window segments against it,
+float32 terms and float64 partial sums into a ``[B, S, K]`` scratch; a
+second launch sums the S partials in a fixed order.
+:func:`rescore_geometry` chooses C and S so that the grid fills the card;
+:func:`rescore_chunks` states which terms each block sums.  The JAX
+package's TPU gate at 2^19 samples (VMEM) does not apply — it takes every
+n.
 """
 
 from __future__ import annotations
@@ -23,6 +28,32 @@ from typing import Optional, Tuple
 import torch
 
 from sushi_tpu_torch.ops import build
+
+
+SMS = 132  # streaming multiprocessors of one H100 SXM
+CHUNK_QUANTUM = 1024  # 256 threads x 4 terms
+MAX_CHUNK = 4096  # 16 KB of pattern in shared memory per block
+
+
+def rescore_geometry(batch: int, pat_cap: int) -> Tuple[int, int]:
+    """(C, S): pattern terms per chunk and chunks per row of the kernel's
+    grid [S, B].  C is the largest multiple of 1024 (at least 1024, at most
+    4096) for which B * S reaches two waves of the H100's 132 SMs, S =
+    ceil(pat_cap / C) (at least 1)."""
+    pat_cap = max(int(pat_cap), 0)
+    per_row = -(-2 * SMS // max(batch, 1))  # chunks per row for two waves
+    chunk = min(max(pat_cap // per_row // CHUNK_QUANTUM * CHUNK_QUANTUM, CHUNK_QUANTUM), MAX_CHUNK)
+    return chunk, max(-(-pat_cap // chunk), 1)
+
+
+def rescore_chunks(pat_len: int, chunk: int, chunks: int):
+    """For each of a row's ``chunks`` blocks, the [start, end) term ranges
+    it sums: chunk c, c + S, c + 2S, ... below ``pat_len`` (a pattern longer
+    than S * C is walked in strides, so every term is summed once)."""
+    return [
+        [(start, min(start + chunk, pat_len)) for start in range(c * chunk, pat_len, chunks * chunk)]
+        for c in range(chunks)
+    ]
 
 
 def rescore_candidates_plain(
@@ -69,7 +100,8 @@ def rescore_candidates(
     the kernel (counted in ``rescore_candidates.launches``) or raise.
     patterns/windows [B, n] float32, pat_lens [B] int32, candidate_lags
     [B, K] int32, all contiguous on one device; ``pat_cap`` bounds every
-    pat_len (the kernel reads each row's own pat_len and needs no bound).
+    pat_len, and sizes the grid (:func:`rescore_geometry`); a longer pattern
+    is still summed whole, by more strides per block.
     """
     if patterns.device.type == "cpu":
         return rescore_candidates_plain(patterns, pat_lens, windows, candidate_lags, pat_cap)
@@ -83,13 +115,17 @@ def rescore_candidates(
         ("pat_lens", pat_lens, torch.int32, (batch,)),
         ("candidate_lags", candidate_lags, torch.int32, (batch, k_count)),
     ))
+    chunk, chunks = rescore_geometry(batch, n if pat_cap is None else min(int(pat_cap), n))
     num = torch.empty(batch, k_count, dtype=torch.float32, device=patterns.device)
     energy = torch.empty_like(num)
+    num_part = torch.empty(batch, chunks, k_count, dtype=torch.float64, device=patterns.device)
+    energy_part = torch.empty_like(num_part)
     with torch.cuda.device(patterns.device):
         status = build.library().sushi_rescore(
             patterns.data_ptr(), windows.data_ptr(), pat_lens.data_ptr(),
             candidate_lags.data_ptr(), num.data_ptr(), energy.data_ptr(),
-            batch, n, k_count, torch.cuda.current_stream().cuda_stream,
+            num_part.data_ptr(), energy_part.data_ptr(),
+            batch, n, k_count, chunk, chunks, torch.cuda.current_stream().cuda_stream,
         )
     build.check(status, "rescore")
     build.count_launch(rescore_candidates)

@@ -1,11 +1,11 @@
 """The full retiming pipeline on PyTorch: validate → demux → ingest →
 search → repair → snap → write.
 
-Port of :mod:`sushi_tpu.pipeline` (which imports the JAX batcher, so it is
-copied rather than imported).  Two differences: the analysis streams are
-loaded without the JAX upload hook and then uploaded by the port's
-:func:`~sushi_tpu_torch.align.batcher.upload_stream`, and the optional
-search trace is a ``torch.profiler`` trace.  The device is explicit:
+Port of :mod:`sushi_tpu.pipeline` (the port imports nothing of the JAX
+package).  Two differences: the analysis streams are loaded without the
+JAX upload hook and go to the device once, when ``calculate_shifts``
+builds its :class:`~sushi_tpu_torch.align.batcher.DeviceMatcher`, and the
+optional search trace is a ``torch.profiler`` trace.  The device is explicit:
 ``run(args, device=None)`` runs on CUDA and fails without it.
 """
 
@@ -17,17 +17,17 @@ import os
 import time as _time
 from typing import List, Optional
 
-from sushi_tpu.align import heuristics, snapping
-from sushi_tpu.align.groups import prepare_search_groups
-from sushi_tpu.errors import SushiError
-from sushi_tpu.media.demux import Demuxer, get_extension
-from sushi_tpu.media.stream_cache import load_pair
-from sushi_tpu.media.timecodes import Timecodes
-from sushi_tpu.text import chapters as chapters_mod
-from sushi_tpu.text import keyframes as keyframes_mod
-from sushi_tpu.text.subs import AssScript, SrtScript
+from sushi_tpu_torch.align import heuristics, snapping
+from sushi_tpu_torch.align.groups import prepare_search_groups
+from sushi_tpu_torch.errors import SushiError
+from sushi_tpu_torch.media.demux import Demuxer, get_extension
+from sushi_tpu_torch.media.stream_cache import load_pair
+from sushi_tpu_torch.media.timecodes import Timecodes
+from sushi_tpu_torch.text import chapters as chapters_mod
+from sushi_tpu_torch.text import keyframes as keyframes_mod
+from sushi_tpu_torch.text.subs import AssScript, SrtScript
 from sushi_tpu_torch import resolve_device
-from sushi_tpu_torch.align.batcher import calculate_shifts, upload_stream
+from sushi_tpu_torch.align.batcher import calculate_shifts
 
 _log = logging.getLogger("sushi_tpu")
 
@@ -287,13 +287,10 @@ def run(args, device=None) -> None:
             raise SushiError("script contains no events")
         script.sort_by_time()
 
+        # uploaded once, when calculate_shifts builds its DeviceMatcher
         src_stream, dst_stream = load_pair(
-            src_audio_path, dst_audio_path,
-            sample_rate=args.sample_rate, sample_type=args.sample_type,
-            upload=False,  # the disk memo's upload hook is the JAX batcher's
+            src_audio_path, dst_audio_path, sample_rate=args.sample_rate, sample_type=args.sample_type,
         )
-        upload_stream(src_stream, device)
-        upload_stream(dst_stream, device)
 
         search_groups = prepare_search_groups(
             script.events,
@@ -355,7 +352,7 @@ def run(args, device=None) -> None:
 
 
 def _fmt_time(seconds: float) -> str:
-    from sushi_tpu.text.timefmt import format_ass_time
+    from sushi_tpu_torch.text.timefmt import format_ass_time
 
     return format_ass_time(seconds)
 

@@ -1,7 +1,7 @@
 """Season sync on PyTorch: pipelined batch sync of many episodes on one device.
 
-Port of :mod:`sushi_tpu.season` (which imports the JAX batcher, so it is
-copied rather than imported).  The reference engine (Sushi) processes one
+Port of :mod:`sushi_tpu.season` (the port imports nothing of the JAX
+package).  The reference engine (Sushi) processes one
 episode per process; syncing a season means N sequential runs.  Here
 episodes are *pipelined*: host threads demux containers (ffmpeg) and ingest
 analysis streams while the device is already searching the episodes that
@@ -51,11 +51,11 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from sushi_tpu.align.groups import prepare_search_groups
-from sushi_tpu.errors import SushiError
-from sushi_tpu.media.demux import Demuxer, get_extension
-from sushi_tpu.media.stream_cache import load_pair
-from sushi_tpu.text.subs import load_script
+from sushi_tpu_torch.align.groups import prepare_search_groups
+from sushi_tpu_torch.errors import SushiError
+from sushi_tpu_torch.media.demux import Demuxer, get_extension
+from sushi_tpu_torch.media.stream_cache import load_pair
+from sushi_tpu_torch.text.subs import load_script
 from sushi_tpu_torch import resolve_device
 from sushi_tpu_torch.align.batcher import (
     DeviceMatcher,
@@ -120,8 +120,8 @@ def _job_keyframe_data(job: SeasonJob):
         return None
     if bool(job.src_keyframes) != bool(job.dst_keyframes):
         raise SushiError("Either none or both of src and dst keyframes should be provided")
-    from sushi_tpu.media.timecodes import Timecodes
-    from sushi_tpu.text import keyframes as keyframes_mod
+    from sushi_tpu_torch.media.timecodes import Timecodes
+    from sushi_tpu_torch.text import keyframes as keyframes_mod
 
     def side(kf_file, tc_file, fps):
         if kf_file in ("auto", "make"):
@@ -142,7 +142,7 @@ def _job_keyframe_data(job: SeasonJob):
 
 def _job_chapter_times(job: SeasonJob, src_demuxer: Optional[Demuxer]) -> List[float]:
     """Chapter starts: explicit file > container chapters; 'none' ignores."""
-    from sushi_tpu.text import chapters as chapters_mod
+    from sushi_tpu_torch.text import chapters as chapters_mod
 
     if job.chapters_file:
         if job.chapters_file.lower() == "none":
@@ -307,10 +307,7 @@ def _prepare_episode(
         kf_data = _job_keyframe_data(job)
     script = load_script(job.script)
     script.sort_by_time()
-    src_stream, dst_stream = load_pair(
-        src_audio, dst_audio, sample_rate, sample_type,
-        upload=False,  # the disk memo's upload hook is the JAX batcher's
-    )
+    src_stream, dst_stream = load_pair(src_audio, dst_audio, sample_rate, sample_type)
     # chapters: explicit per-job file wins, else container chapters —
     # grouping must honor them like the single-episode pipeline
     # (typesetting merges are chapter-bounded and post-processing averages

@@ -118,7 +118,7 @@ def test_device_alignment_seed_matches_host(tmp_path):
     """The coarse-to-fine device seed pins the host estimate's offset (on
     broadband noise, whose pooled peak is unambiguous)."""
     from tests.fixtures import shift_audio, write_wav_int16
-    from sushi_tpu.media.stream import AudioStream
+    from sushi_tpu_torch.media.stream import AudioStream
 
     rng = np.random.RandomState(11)
     audio = (rng.randn(22 * 48000) * 6000).astype(np.int16)

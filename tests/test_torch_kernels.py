@@ -22,6 +22,7 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from chip_smoke import KERNEL_SHAPES  # noqa: E402
 from sushi_tpu.ops import pallas_coarse, pallas_ssd  # noqa: E402
 from sushi_tpu_torch.ops import coarse, rescore, sqdiff  # noqa: E402
 
@@ -181,6 +182,84 @@ def test_wrappers_refuse_devices_without_a_kernel():
         coarse.coarse_post(meta, meta, lens, lens, torch.empty(2, device="meta"))
 
 
+# (n, pat_len) edge cases of the coarse kernel's tile geometry: L = 0,
+# L > 4096 and not a multiple of 128, L >= n, L = n - 1, and a ragged last
+# tile (n = 6144)
+COARSE_EDGES = [(98304, 0), (98304, 8492), (98304, 98304), (98304, 98303), (24576, 24575),
+                (6144, 5000), (6144, 0), (3 << 17, 3 << 16)]
+
+
+def _check_score_block_tiles(n, pat_len):
+    """Every lag u of every score block reads P(u) from the block's own tile
+    and P(min(u + L, n)) from a loaded far tile (or the row total at n);
+    the block loads no far tile that no lag needs."""
+    ends = np.minimum(np.arange(n, dtype=np.int64) + min(max(pat_len, 0), n), n)
+    for lag_tile in range(coarse.lag_tiles(n)):
+        near, far = coarse.score_block_tiles(n, pat_len, lag_tile)
+        lags = np.arange(lag_tile * coarse.TILE, min((lag_tile + 1) * coarse.TILE, n))
+        assert near == lag_tile and np.all(lags // coarse.TILE == near)
+        inside = ends[lags][ends[lags] < n]
+        assert sorted(far) == sorted(set((inside // coarse.TILE).tolist())), (n, pat_len, lag_tile)
+        assert all(tile * coarse.TILE < n for tile in far)
+
+
+@pytest.mark.parametrize("batch,n,pat_cap", KERNEL_SHAPES)
+def test_score_block_tiles_cover_every_span(batch, n, pat_cap):
+    assert coarse.lag_tiles(n) == -(-n // 4096)
+    for pat_len in (pat_cap, pat_cap // 2 + 77):
+        _check_score_block_tiles(n, pat_len)
+
+
+@pytest.mark.parametrize("n,pat_len", COARSE_EDGES)
+def test_score_block_tiles_edge_cases(n, pat_len):
+    _check_score_block_tiles(n, pat_len)
+
+
+@pytest.mark.parametrize("batch,n,pat_cap", KERNEL_SHAPES + ((1, 4096, 0), (128, 4096, 4096)))
+def test_rescore_chunks_cover_the_pattern_once(batch, n, pat_cap):
+    """C and S: C a multiple of 1024 up to 4096; two waves of 132 SMs
+    unless the pattern is too short for 1024-term chunks; and for every
+    pat_len (one past the cap included) the blocks' chunks cover
+    [0, pat_len) once."""
+    chunk, chunks = rescore.rescore_geometry(batch, pat_cap)
+    assert chunk % 1024 == 0 and 1024 <= chunk <= rescore.MAX_CHUNK == 4096
+    assert chunks == max(-(-pat_cap // chunk), 1)
+    assert batch * chunks >= 2 * 132 or chunk == 1024
+    for pat_len in {0, 1, pat_cap - 1, pat_cap, pat_cap + 3 * chunk + 5} - {-1}:
+        covered = np.zeros(pat_len, np.int32)
+        for ranges in rescore.rescore_chunks(pat_len, chunk, chunks):
+            for start, end in ranges:
+                assert 0 <= start < end <= pat_len and end - start <= chunk
+                covered[start:end] += 1
+        assert np.all(covered == 1), (pat_len, chunk, chunks)
+
+
+def test_rescore_geometry_fills_the_card_on_a_lone_row():
+    """The lone 180 s pattern (1x6291456, pat_cap 3145728) gets hundreds
+    of blocks, and 128x393216/49152 several per row."""
+    chunk, chunks = rescore.rescore_geometry(1, 3 << 20)
+    assert chunks >= 264 and chunk * chunks >= 3 << 20
+    assert rescore.rescore_geometry(128, 49152)[1] >= 3
+
+
+def _edge_inputs(n, pat_len, batch=4, seed=3):
+    """uint8-valued rows whose windows hold zero runs crossing prefix tile
+    boundaries (one row is all zero past a short prefix), every row with
+    pattern length ``pat_len``."""
+    rng = np.random.RandomState(seed + n + pat_len)
+    wins = rng.randint(0, 256, (batch, n)).astype(np.float32) * np.float32(1 / 255)
+    pats = np.zeros((batch, n), np.float32)
+    pats[:, :pat_len] = rng.randint(0, 256, (batch, pat_len)).astype(np.float32) * np.float32(1 / 255)
+    for b in range(batch):
+        lo = max(4096 * (b + 1) - 1000 - 61 * b, 0)
+        wins[b, lo : lo + 2 * 4096 + 200 * b] = 0.0
+    wins[-1, 300:] = 0.0
+    corr = np.fft.irfft(np.fft.rfft(wins, n) * np.conj(np.fft.rfft(pats, n)), n).astype(np.float32)
+    lens = np.full(batch, pat_len, np.int32)
+    return (corr, wins, lens, (n - lens + 1).astype(np.int32),
+            np.sum(pats * pats, axis=1, dtype=np.float32)), pats
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -265,3 +344,39 @@ def test_launch_count_is_thread_safe():
         sys.setswitchinterval(interval)
     assert not any(thread.is_alive() for thread in threads)
     assert wrapper.launches == 8 * 20000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,pat_len", COARSE_EDGES)
+def test_cuda_kernels_edge_cases_match_plain(cuda_device, n, pat_len):
+    """Both kernels against their plain versions at the tile geometry's
+    edge cases, on rows with zero runs across tile boundaries; the last
+    case is a reduced lone row (1x(3<<17), pat_len 3<<16)."""
+    batch = 1 if n == 3 << 17 else 4
+    arrays, pats = _edge_inputs(n, pat_len, batch=batch)
+    arrays = [torch.from_numpy(a).to(cuda_device) for a in arrays]
+    got = coarse.coarse_post(*arrays)
+    want = coarse.coarse_post_plain(*arrays)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=2e-6)
+    for got_part, want_part in zip(got[1:], want[1:]):
+        assert torch.equal(got_part, want_part)
+    candidates = sqdiff.select_candidates(*got, 16)
+    patterns = torch.from_numpy(pats).to(cuda_device)
+    num, energy = rescore.rescore_candidates(patterns, arrays[2], arrays[1], candidates, max(pat_len, 1))
+    want_num, want_energy = rescore.rescore_candidates_plain(patterns, arrays[2], arrays[1], candidates, max(pat_len, 1))
+    torch.testing.assert_close(num, want_num, rtol=1e-6, atol=0)
+    torch.testing.assert_close(energy, want_energy, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_rescore_pattern_longer_than_its_cap(cuda_device):
+    """A pat_len above the pat_cap that sized the grid is still summed
+    whole (the blocks walk it in strides)."""
+    arrays = [
+        torch.from_numpy(a).to(cuda_device)
+        for a in _rescore_inputs(np.random.RandomState(4), 98304, 30000, batch=2, k=18)
+    ]
+    num, energy = rescore.rescore_candidates(*arrays, 4096)
+    want_num, want_energy = rescore.rescore_candidates_plain(*arrays)
+    torch.testing.assert_close(num, want_num, rtol=1e-6, atol=0)
+    torch.testing.assert_close(energy, want_energy, rtol=1e-6, atol=0)

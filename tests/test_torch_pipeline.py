@@ -13,8 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from sushi_tpu.cli import parse_args_and_run as jax_cli  # noqa: E402
-from sushi_tpu.errors import SushiError  # noqa: E402
 from sushi_tpu_torch.cli import parse_args_and_run as torch_cli  # noqa: E402
+from sushi_tpu_torch.errors import SushiError  # noqa: E402
 
 from tests.fixtures import write_ass, write_srt  # noqa: E402
 from tests.test_pipeline import EVENTS, media  # noqa: E402,F401  (module fixture)
@@ -52,8 +52,9 @@ def test_script_byte_identical_to_jax(media, tmp_path, ext, flags):  # noqa: F81
 
 
 def test_sync_never_imports_jax(media, tmp_path):  # noqa: F811
-    """Importing the port and syncing an episode leaves JAX unimported.  A
-    subprocess, because this test process imported JAX already."""
+    """Importing the port and syncing an episode leaves JAX and every
+    ``sushi_tpu`` module unimported.  A subprocess, because this test
+    process imported both already."""
     _, src_wav, dst_wav = media
     script = str(tmp_path / "in.srt")
     out = str(tmp_path / "out.srt")
@@ -63,9 +64,13 @@ def test_sync_never_imports_jax(media, tmp_path):  # noqa: F811
         import sys
         import sushi_tpu_torch
         from sushi_tpu_torch.cli import parse_args_and_run
+        def reference_modules():
+            return sorted(m for m in sys.modules if m == "sushi_tpu" or m.startswith("sushi_tpu."))
         assert "jax" not in sys.modules, "importing the port imported jax"
+        assert not reference_modules(), "importing the port imported %s" % reference_modules()
         parse_args_and_run(sys.argv[1:], device="cpu")
         assert "jax" not in sys.modules, "the sync imported jax"
+        assert not reference_modules(), "the sync imported %s" % reference_modules()
         """
     )
     env = dict(os.environ, PYTHONPATH=REPO_ROOT, SUSHI_STREAM_CACHE=str(tmp_path / "cache"))

@@ -16,10 +16,10 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from sushi_tpu import season as jax_season  # noqa: E402
-from sushi_tpu.errors import SushiError  # noqa: E402
 from sushi_tpu.text.subs import SrtScript  # noqa: E402
 from sushi_tpu_torch import season as torch_season  # noqa: E402
 from sushi_tpu_torch.cli import parse_args_and_run as torch_cli  # noqa: E402
+from sushi_tpu_torch.errors import SushiError  # noqa: E402
 
 from tests.fixtures import shift_audio, synth_episode, write_srt, write_wav_int16  # noqa: E402
 from tests.test_season import EVENTS, fake_ffmpeg, season  # noqa: E402,F401  (fixtures)
@@ -146,7 +146,7 @@ def test_load_jobs_validation_like_jax(tmp_path, content):
     path.write_text(content, encoding="utf-8")
     messages = []
     for module in (jax_season, torch_season):
-        with pytest.raises(SushiError) as raised:
+        with pytest.raises(module.SushiError) as raised:
             module.load_jobs(str(path))
         messages.append(str(raised.value))
     assert messages[0] == messages[1]
@@ -170,7 +170,7 @@ def test_job_option_errors_like_jax(season, tmp_path, fields):  # noqa: F811
     messages = []
     for module, extra in ((jax_season, {}), (torch_season, {"device": "cpu"})):
         job = module.SeasonJob(output=str(tmp_path / "x.srt"), **spec, **fields)
-        with pytest.raises(SushiError) as raised:
+        with pytest.raises(module.SushiError) as raised:
             module.sync_season([job], **extra)
         messages.append(str(raised.value))
     assert messages[0] == messages[1]
@@ -244,15 +244,19 @@ def _jobs_file(season, tmp_path):  # noqa: F811
 
 
 def test_season_never_imports_jax(season, tmp_path):  # noqa: F811
-    """A season run leaves JAX unimported.  A subprocess, because this test
-    process imported JAX already."""
+    """A season run leaves JAX and every ``sushi_tpu`` module unimported.  A
+    subprocess, because this test process imported both already."""
     code = textwrap.dedent(
         """
         import sys
         from sushi_tpu_torch.season import load_jobs, sync_season
+        def reference_modules():
+            return sorted(m for m in sys.modules if m == "sushi_tpu" or m.startswith("sushi_tpu."))
         assert "jax" not in sys.modules, "importing the season imported jax"
+        assert not reference_modules(), "importing the season imported %s" % reference_modules()
         assert sync_season(load_jobs(sys.argv[1]), device="cpu") == []
         assert "jax" not in sys.modules, "the season imported jax"
+        assert not reference_modules(), "the season imported %s" % reference_modules()
         """
     )
     env = dict(os.environ, PYTHONPATH=REPO_ROOT, SUSHI_STREAM_CACHE=str(tmp_path / "cache"))
