@@ -68,21 +68,24 @@ def main(argv=None):
     device = torch.device("cuda")
     build.library()
     record = {"label": args.label, "card": chip_smoke.card_line(), "reps": args.reps, "shapes": {}}
-    for index, (batch, n, pat_cap) in enumerate(chip_smoke.KERNEL_SHAPES):
+    for index, launch in enumerate(chip_smoke.KERNEL_SHAPES):
+        batch, n, pat_cap = launch[:3]
+        # a mesh member's slice names its chunk's rows, which size the rescore grid
+        grid = {"chunk_rows": launch[3]} if len(launch) > 3 else {}
         patterns, pat_lens, windows, win_lens = chip_smoke.kernel_inputs(batch, n, pat_cap, device, seed=index)
         corr = sqdiff.correlate_rows(patterns, windows, n)
         coarse_args = (corr, windows, pat_lens, win_lens - pat_lens + 1, torch.sum(patterns * patterns, dim=1))
         candidates = sqdiff.select_candidates(*coarse.coarse_post(*coarse_args), 16)
         rescore_args = (patterns, pat_lens, windows, candidates, pat_cap)
-        shape = "%dx%d/%d" % (batch, n, pat_cap)
+        shape = "%dx%d/%d" % (batch, n, pat_cap) + (" of %d" % launch[3] if grid else "")
         record["shapes"][shape] = entry = {}
-        for name, kernel, plain, call_args in (
-            ("rescore", rescore.rescore_candidates, rescore.rescore_candidates_plain, rescore_args),
-            ("coarse_post", coarse.coarse_post, coarse.coarse_post_plain, coarse_args),
+        for name, kernel, plain, call_args, kwargs in (
+            ("rescore", rescore.rescore_candidates, rescore.rescore_candidates_plain, rescore_args, grid),
+            ("coarse_post", coarse.coarse_post, coarse.coarse_post_plain, coarse_args, {}),
         ):
-            total, by_kernel = device_ms(lambda: kernel(*call_args), args.reps)
+            total, by_kernel = device_ms(lambda: kernel(*call_args, **kwargs), args.reps)
             entry[name] = {
-                "ms": chip_smoke.time_ms(lambda: kernel(*call_args), reps=args.reps),
+                "ms": chip_smoke.time_ms(lambda: kernel(*call_args, **kwargs), reps=args.reps),
                 "device_ms": total,
                 "device_ms_by_kernel": by_kernel,
                 "plain_ms": chip_smoke.time_ms(lambda: plain(*call_args), reps=args.reps),

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch + CUDA port on one NVIDIA GPU.
+"""Smoke test of the PyTorch + CUDA port on NVIDIA GPUs (one is enough).
 
     python3 chip_smoke.py
 
@@ -9,7 +9,7 @@ on the card, then checks it:
 
 1. the card's name and power limit (``nvidia-smi``), and the kernel build;
 2. each kernel vs its plain PyTorch version on the card, at every n that
-   phases 3-6 launch it with (with the largest batch and pat_cap seen at
+   phases 3-7 launch it with (with the largest batch and pat_cap seen at
    that n), on uint8-quantized rows with plateaus and silence so
    that exact ties occur (rescore rtol 1e-6; coarse post block_min atol
    2e-6, block args and tie seeds equal, the seeds inside their bands, the
@@ -33,9 +33,19 @@ on the card, then checks it:
    pattern in a 400 s window (lag-chunked into 2^20 rows) and a 180 s
    pattern in a 400 s window (matched alone at 3*2^21), each finding the
    planted lag, with (score, lag) equal to the plain path on the CPU
-   (lag equal, score rtol 1e-6).
+   (lag equal, score rtol 1e-6);
+7. phases 3, 5 (warm) and 6 (which run on one card) again, twice each
+   (the mesh's first use, then warm), with every chunk's rows split over
+   a ``('dp',)`` mesh (every card, or two members on card 0 when there is
+   one): the headline .srt and every season output byte-identical to
+   theirs, the group shifts equal, the wide (score, lag) bit-identical,
+   every member taking rows; ``sharded_alignment_step`` and
+   ``wide_window_search`` on a ('dp', 'sp') grid against the float64
+   oracle, one of them a 3 s pattern in a 120 s window; and both kernels
+   held against their plain versions at every (B, n, pat_cap, chunk rows)
+   the phase launched that phase 2 does not time.
 
-Every kernel launch counter is set to 0 just before each of phases 3-6
+Every kernel launch counter is set to 0 just before each of phases 3-7
 drives its path and read just after; each phase fails if a kernel was not
 launched; the launches per phase are printed at the end.  Any failed
 check exits non-zero.  The last two lines of standard output are the
@@ -83,6 +93,21 @@ KERNEL_SHAPES = (
     # phase 6: the 400 s window's 2^20 lag chunks, and the lone 180 s pattern
     (8, 1 << 20, 49152),
     (1, 3 << 21, 3 << 20),
+    # phase 7, a member's slice on a mesh of two, with the rows of its whole
+    # chunk, which size the slice's rescore grid: at each n the largest
+    # batch with its largest pat_cap (and the largest pat_cap where a
+    # smaller batch has it), the 400 s window's chunks, and the 120 s
+    # wide_window_search's 2^20 rows
+    (64, 65536, 32768, 128),
+    (64, 98304, 49152, 128),
+    (32, 98304, 65536, 64),
+    (16, 131072, 98304, 32),
+    (16, 196608, 65536, 32),
+    (64, 262144, 65536, 128),
+    (64, 393216, 65536, 128),
+    (4, 393216, 98304, 8),
+    (4, 1 << 20, 49152, 8),
+    (1, 1 << 20, 1 << 20, 2),
 )
 # the shape whose times stand in the kernels' JSON line
 HEADLINE_SHAPE = "128x393216/49152"
@@ -230,6 +255,17 @@ def rescore_bytes(pat_lens, lags, n):
     return 4 * total + batch * 4 + batch * k_count * (4 + 8)
 
 
+def launch_shape(entry):
+    """(batch, n, pat_cap, chunk_rows) of a ``KERNEL_SHAPES`` entry: the
+    rows of the whole chunk, which size the rescore grid, are the batch's
+    own unless a mesh member's slice names its chunk's."""
+    return tuple(entry) + tuple(entry[:1]) * (4 - len(entry))
+
+
+def shape_label(batch, n, pat_cap, chunk_rows):
+    return "%dx%d/%d" % (batch, n, pat_cap) + ("" if chunk_rows == batch else " of %d" % chunk_rows)
+
+
 def bound_ms(nbytes):
     return nbytes / DRAM_BYTES_PER_S * 1e3
 
@@ -251,6 +287,56 @@ def coarse_peak_bytes(coarse_args):
     return peak
 
 
+def hold_kernels(batch, n, pat_cap, chunk_rows, device, seed):
+    """Both kernels vs their plain versions on one shape's inputs (see
+    :func:`kernel_inputs`), the rescore kernel with the grid of
+    ``chunk_rows`` rows; fails on any disagreement.  Returns the inputs,
+    the coarse arguments, the kernel's candidates and the worst rescore and
+    block_min errors."""
+    import torch
+
+    from sushi_tpu_torch.ops import coarse, rescore, sqdiff
+
+    patterns, pat_lens, windows, win_lens = kernel_inputs(batch, n, pat_cap, device, seed=seed)
+    corr = sqdiff.correlate_rows(patterns, windows, n)
+    pat_energy = sqdiff.row_energy(patterns, pat_cap)
+    lag_counts = win_lens - pat_lens + 1
+    coarse_args = (corr, windows, pat_lens, lag_counts, pat_energy)
+
+    got = coarse.coarse_post(*coarse_args)
+    want = coarse.coarse_post_plain(*coarse_args)
+    coarse_err = float(torch.max(torch.abs(got[0] - want[0])))
+    check(coarse_err <= BLOCK_MIN_ATOL, "coarse_post block_min off by %g at %dx%d" % (coarse_err, batch, n))
+    for part, got_part, want_part in zip(("block_arg", "first_tight", "first_loose"), got[1:], want[1:]):
+        check(torch.equal(got_part, want_part), "coarse_post %s differs from plain at %dx%d" % (part, batch, n))
+    # tie seeds inside their bands of the plain scores
+    scores = sqdiff.scores_from_corr(*coarse_args)
+    row_min = torch.amin(scores, dim=1)
+    scale = 1.0 + torch.abs(row_min)
+    for seed_lags, band in ((got[2], sqdiff.TIGHT_BAND), (got[3], sqdiff.LOOSE_BAND)):
+        seed_scores = torch.gather(scores, 1, seed_lags.to(torch.int64)[:, None])[:, 0]
+        check(bool(torch.all(seed_scores <= row_min + band * scale)),
+              "coarse_post tie seed outside its band at %dx%d" % (batch, n))
+    del scores
+
+    kernel_cands = sqdiff.select_candidates(*got, 16)
+    plain_cands = sqdiff.select_candidates(*want, 16)
+    num, energy = rescore.rescore_candidates(patterns, pat_lens, windows, kernel_cands, pat_cap, chunk_rows)
+    num_p, energy_p = rescore.rescore_candidates_plain(patterns, pat_lens, windows, kernel_cands, pat_cap)
+    for got_sum, want_sum in ((num, num_p), (energy, energy_p)):
+        rel = torch.abs(got_sum - want_sum) / torch.clamp_min(torch.abs(want_sum), 1e-30)
+        check(float(torch.max(rel)) <= RESCORE_RTOL, "rescore off by rel %g at %dx%d" % (float(torch.max(rel)), batch, n))
+    rescore_err = max(float(torch.max(torch.abs(num - num_p))), float(torch.max(torch.abs(energy - energy_p))))
+
+    # the decision: kernel path (both kernels) vs plain path (both plain)
+    kernel_pick = sqdiff.pick_exact(num, energy, pat_energy, lag_counts, kernel_cands)
+    num_pp, energy_pp = rescore.rescore_candidates_plain(patterns, pat_lens, windows, plain_cands, pat_cap)
+    plain_pick = sqdiff.pick_exact(num_pp, energy_pp, pat_energy, lag_counts, plain_cands)
+    check(torch.equal(kernel_pick[1], plain_pick[1]) and torch.equal(kernel_pick[0], plain_pick[0]),
+          "kernel and plain paths pick different (score, lag) at %dx%d" % (batch, n))
+    return (patterns, pat_lens, windows, win_lens), coarse_args, kernel_cands, rescore_err, coarse_err
+
+
 def check_kernels(device):
     """Each kernel vs its plain version at the main path's shapes; returns
     per-kernel records (worst error, times, bytes and bounds at each
@@ -261,48 +347,16 @@ def check_kernels(device):
 
     records = {name: {"max_abs_err": 0.0, "times": {}, "bytes": {}} for name in ("rescore", "coarse_post")}
     coarse_peak = None
-    for index, (batch, n, pat_cap) in enumerate(KERNEL_SHAPES):
-        patterns, pat_lens, windows, win_lens = kernel_inputs(batch, n, pat_cap, device, seed=index)
-        corr = sqdiff.correlate_rows(patterns, windows, n)
-        pat_energy = torch.sum(patterns * patterns, dim=1)
-        lag_counts = win_lens - pat_lens + 1
-        coarse_args = (corr, windows, pat_lens, lag_counts, pat_energy)
-
-        got = coarse.coarse_post(*coarse_args)
-        want = coarse.coarse_post_plain(*coarse_args)
-        coarse_err = float(torch.max(torch.abs(got[0] - want[0])))
-        check(coarse_err <= BLOCK_MIN_ATOL, "coarse_post block_min off by %g at %dx%d" % (coarse_err, batch, n))
-        for part, got_part, want_part in zip(("block_arg", "first_tight", "first_loose"), got[1:], want[1:]):
-            check(torch.equal(got_part, want_part), "coarse_post %s differs from plain at %dx%d" % (part, batch, n))
-        # tie seeds inside their bands of the plain scores
-        scores = sqdiff.scores_from_corr(*coarse_args)
-        row_min = torch.amin(scores, dim=1)
-        scale = 1.0 + torch.abs(row_min)
-        for seed, band in ((got[2], sqdiff.TIGHT_BAND), (got[3], sqdiff.LOOSE_BAND)):
-            seed_scores = torch.gather(scores, 1, seed.to(torch.int64)[:, None])[:, 0]
-            check(bool(torch.all(seed_scores <= row_min + band * scale)),
-                  "coarse_post tie seed outside its band at %dx%d" % (batch, n))
-        del scores
-
-        kernel_cands = sqdiff.select_candidates(*got, 16)
-        plain_cands = sqdiff.select_candidates(*want, 16)
-        num, energy = rescore.rescore_candidates(patterns, pat_lens, windows, kernel_cands, pat_cap)
-        num_p, energy_p = rescore.rescore_candidates_plain(patterns, pat_lens, windows, kernel_cands, pat_cap)
-        for got_sum, want_sum in ((num, num_p), (energy, energy_p)):
-            rel = torch.abs(got_sum - want_sum) / torch.clamp_min(torch.abs(want_sum), 1e-30)
-            check(float(torch.max(rel)) <= RESCORE_RTOL, "rescore off by rel %g at %dx%d" % (float(torch.max(rel)), batch, n))
-        rescore_err = max(float(torch.max(torch.abs(num - num_p))), float(torch.max(torch.abs(energy - energy_p))))
-
-        # the decision: kernel path (both kernels) vs plain path (both plain)
-        kernel_pick = sqdiff.pick_exact(num, energy, pat_energy, lag_counts, kernel_cands)
-        num_pp, energy_pp = rescore.rescore_candidates_plain(patterns, pat_lens, windows, plain_cands, pat_cap)
-        plain_pick = sqdiff.pick_exact(num_pp, energy_pp, pat_energy, lag_counts, plain_cands)
-        check(torch.equal(kernel_pick[1], plain_pick[1]) and torch.equal(kernel_pick[0], plain_pick[0]),
-              "kernel and plain paths pick different (score, lag) at %dx%d" % (batch, n))
+    for index, entry in enumerate(KERNEL_SHAPES):
+        batch, n, pat_cap, chunk_rows = launch_shape(entry)
+        (patterns, pat_lens, windows, _), coarse_args, kernel_cands, rescore_err, coarse_err = hold_kernels(
+            batch, n, pat_cap, chunk_rows, device, seed=index)
+        corr = coarse_args[0]
 
         times = {
             "rescore": (
-                time_ms(lambda: rescore.rescore_candidates(patterns, pat_lens, windows, kernel_cands, pat_cap)),
+                time_ms(lambda: rescore.rescore_candidates(
+                    patterns, pat_lens, windows, kernel_cands, pat_cap, chunk_rows)),
                 time_ms(lambda: rescore.rescore_candidates_plain(patterns, pat_lens, windows, kernel_cands, pat_cap)),
             ),
             "coarse_post": (
@@ -314,25 +368,25 @@ def check_kernels(device):
             "rescore": rescore_bytes(pat_lens.cpu(), kernel_cands.cpu(), n),
             "coarse_post": coarse_bytes(batch, n),
         }
-        if (batch, n, pat_cap) == PEAK_SHAPE:
+        if (batch, n, pat_cap, chunk_rows) == launch_shape(PEAK_SHAPE):
             coarse_peak = coarse_peak_bytes(coarse_args)
         fft_ms = time_ms(lambda: sqdiff.correlate_rows(patterns, windows, n))
         records["rescore"]["max_abs_err"] = max(records["rescore"]["max_abs_err"], rescore_err)
         records["coarse_post"]["max_abs_err"] = max(records["coarse_post"]["max_abs_err"], coarse_err)
-        shape = "%dx%d/%d" % (batch, n, pat_cap)
+        shape = shape_label(batch, n, pat_cap, chunk_rows)
         for name, pair in times.items():
             records[name]["times"][shape] = pair
             records[name]["bytes"][shape] = nbytes[name]
         log(
-            "phase 2: %3dx%-7d pat_cap %-7d rescore %.4f ms (plain %.4f)  coarse_post %.4f ms "
+            "phase 2: %-24s rescore %.4f ms (plain %.4f)  coarse_post %.4f ms "
             "(plain %.4f)  cuFFT correlation %.4f ms  err rescore %g block_min %g  ok"
-            % (batch, n, pat_cap, times["rescore"][0], times["rescore"][1],
+            % (shape, times["rescore"][0], times["rescore"][1],
                times["coarse_post"][0], times["coarse_post"][1], fft_ms, rescore_err, coarse_err)
         )
         for name in ("rescore", "coarse_post"):
             bound = bound_ms(nbytes[name])
-            log("phase 2: %3dx%-7d pat_cap %-7d %-11s %d bytes, bound %.2f us at 3.35 TB/s, %.4f ms: "
-                "%.1f%% of bound" % (batch, n, pat_cap, name, nbytes[name], bound * 1e3, times[name][0],
+            log("phase 2: %-24s %-11s %d bytes, bound %.2f us at 3.35 TB/s, %.4f ms: "
+                "%.1f%% of bound" % (shape, name, nbytes[name], bound * 1e3, times[name][0],
                                      100.0 * bound / times[name][0]))
         del patterns, windows, corr
         torch.cuda.empty_cache()
@@ -635,6 +689,7 @@ def check_season(device, directory, episodes, seconds, jump_slot, io_threads, mi
                 "season episode %d" % i, job["script"], job["output"], fixtures[i][1]))
     stats["single_seconds"] = time.perf_counter() - started
     stats["worst_line"] = worst_line
+    stats["jobs"] = jobs
     return stats
 
 
@@ -659,7 +714,8 @@ def wide_streams(samples, cases, seed=6):
 def check_wide_windows(device, samples, cases):
     """Each case through ``execute_planned`` on ``device`` (twice: cold,
     then warm) and through the plain path on the CPU; returns
-    [(name, route, result, device seconds cold/warm, CPU seconds, buckets)]."""
+    [(name, route, result, device seconds cold/warm, CPU seconds, buckets)]
+    and the (src, dst) streams, as numpy arrays and on ``device``."""
     import numpy as np
     import torch
 
@@ -694,7 +750,7 @@ def check_wide_windows(device, samples, cases):
         check(abs(got[0] - want[0]) <= WIDE_SCORE_RTOL * abs(want[0]),
               "wide %s: score %r differs from the plain path's %r" % (name, got[0], want[0]))
         records.append((name, route, got, times, cpu_seconds, buckets))
-    return records
+    return records, (src, dst), on_device
 
 
 def reset_launches():
@@ -717,6 +773,153 @@ def require_launched(what, counts):
 
 
 # ---------------------------------------------------------------------------
+# phase 7: the paths of phases 3, 5 and 6 with every chunk split over a mesh
+
+
+def mesh_members():
+    """Every card when there are two or more, else two members on card 0
+    (the split, the per-member launches and the join run all the same)."""
+    import torch
+
+    count = torch.cuda.device_count()
+    if count > 1:
+        return [torch.device("cuda", i) for i in range(count)]
+    return [torch.device("cuda", 0)] * 2
+
+
+class _ShapeRecorder:
+    """Records the (B, n, pat_cap, chunk_rows) of every kernel launch on the
+    card: wraps ``sqdiff.exact_select``, through which every match reaches
+    the rescore kernel just after the coarse kernel ran at the same (B, n)."""
+
+    def __init__(self):
+        from sushi_tpu_torch.ops import sqdiff
+
+        self.shapes = set()
+        self._sqdiff = sqdiff
+        self._original = sqdiff.exact_select
+
+    def __enter__(self):
+        def recording(patterns, pat_lens, windows, win_lens, candidates, pat_cap, pat_energy=None,
+                      chunk_rows=None):
+            if patterns.device.type == "cuda":
+                batch, n = patterns.shape
+                self.shapes.add((batch, n, n if pat_cap is None else min(int(pat_cap), n),
+                                 batch if chunk_rows is None else chunk_rows))
+            return self._original(patterns, pat_lens, windows, win_lens, candidates, pat_cap, pat_energy,
+                                  chunk_rows)
+
+        self._sqdiff.exact_select = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._sqdiff.exact_select = self._original
+
+
+def check_mesh_headline(out_path, want_srt, results, want_results):
+    with open(out_path, "rb") as handle:
+        check(handle.read() == want_srt, "mesh headline: the .srt differs from phase 3's")
+    check([r.shift for r in results] == [r.shift for r in want_results],
+          "mesh headline: group shifts differ from phase 3's")
+
+
+def require_every_member(what, summary, members):
+    rows = summary["member_rows"]
+    check(len(rows) == members and min(rows) > 0, "%s: not every mesh member took rows: %s" % (what, rows))
+    return rows
+
+
+def mesh_season(jobs, io_threads, device):
+    """Phase 5's season again (warm), writing ``mesh.srt`` beside each
+    episode's ``season.srt``, which it must equal byte for byte."""
+    mesh_jobs = [dict(job, output=os.path.join(os.path.dirname(job["output"]), "mesh.srt")) for job in jobs]
+    jobs_path = os.path.join(WORK, "season", "jobs_mesh.json")
+    with open(jobs_path, "w", encoding="utf-8") as handle:
+        json.dump(mesh_jobs, handle)
+    seconds, merged, summary = season_run(jobs_path, io_threads, device)
+    for i, (job, mesh_job) in enumerate(zip(jobs, mesh_jobs)):
+        with open(job["output"], "rb") as want, open(mesh_job["output"], "rb") as got:
+            check(got.read() == want.read(), "mesh season: episode %d differs from phase 5's output" % i)
+    return seconds, merged, summary
+
+
+def mesh_wide(device_streams, cases, phase6):
+    """Phase 6's cases again (twice: first use, then warm) with the streams
+    copied to every member: (score, lag) bit-identical to phase 6's card
+    results.  Returns [(name, result, seconds first/warm, member rows)]."""
+    from sushi_tpu_torch.align import batcher
+
+    src, dst = (batcher._replicate_on_mesh(stream) for stream in device_streams)
+    records = []
+    for (name, pat_start, pat_len, win_start, win_len, _), (_, _, want, _, _, _) in zip(cases, phase6):
+        item = batcher.PlannedSearch(name, pat_start, pat_len, win_start, win_len, 0.0, SAMPLE_RATE)
+        times = []
+        for _ in range(2):
+            batcher.TELEMETRY.reset()
+            started = time.perf_counter()
+            got = batcher.execute_planned(src, dst, [item])[name]
+            times.append(time.perf_counter() - started)
+            check(got[0] == want[0] and got[2] == want[2],
+                  "mesh wide %s: (score, abs sample) %r differs from phase 6's %r" % (name, got, want))
+        records.append((name, got, times, batcher.TELEMETRY.summary()["member_rows"]))
+    return records
+
+
+def mesh_searches(members, host_streams, case):
+    """``sharded_alignment_step`` and ``wide_window_search`` on a
+    (members/2, 2) ('dp', 'sp') grid against the float64 oracle (lag
+    within 1, score within 1e-3), then a full-size ``wide_window_search``:
+    phase 6's 3 s pattern in a 120 s window of its destination stream."""
+    import numpy as np
+
+    from sushi_tpu_torch.models.aligner import sharded_alignment_step
+    from sushi_tpu_torch.ops.sqdiff import oracle_match
+    from sushi_tpu_torch.parallel.sharded_search import make_mesh, wide_window_search
+
+    dp = max(len(members) // 2, 1)
+    grid = make_mesh((dp, 2), ("dp", "sp"), members[: 2 * dp])
+
+    def near_oracle(what, score, lag, oracle_score, oracle_lag):
+        check(abs(lag - oracle_lag) <= 1 and abs(score - oracle_score) <= 1e-3,
+              "%s: (%.6g, %d) against the oracle's (%.6g, %d)" % (what, score, lag, oracle_score, oracle_lag))
+
+    step, args = sharded_alignment_step(grid)
+    scores, lags = step(*args)
+    patterns, pat_lens, windows, win_lens, offsets = (a.cpu().numpy() for a in args)
+    for request in range(dp):
+        rows = (2 * request, 2 * request + 1)
+        found = [oracle_match(patterns[r, : pat_lens[r]], windows[r, : win_lens[r]]) for r in rows]
+        best = min(score for score, _ in found)
+        first = min(lag + int(offsets[r]) for r, (score, lag) in zip(rows, found) if score == best)
+        near_oracle("sharded_alignment_step request %d" % request, float(scores[request]), int(lags[request]),
+                    best, first)
+
+    rng = np.random.RandomState(2)
+    window = rng.rand(8192).astype(np.float32)
+    pattern = window[5000:5400].copy()
+    near_oracle("wide_window_search 8192", *wide_window_search(pattern, window, grid, axis="sp", fft_size=4096),
+                *oracle_match(pattern, window))
+
+    src, dst = host_streams
+    _, pat_start, pat_len, win_start, _, planted = case
+    start = win_start + planted - 50 * SAMPLE_RATE
+
+    def as_f32(values):
+        return values.astype(np.float32) * np.float32(1.0 / 255.0)  # as sqdiff.gather_rows converts
+
+    pattern = as_f32(src[pat_start : pat_start + pat_len])
+    window = as_f32(dst[start : start + 120 * SAMPLE_RATE])
+    started = time.perf_counter()
+    score, lag = wide_window_search(pattern, window, grid, axis="sp")
+    seconds = time.perf_counter() - started
+    oracle = oracle_match(pattern, window)
+    near_oracle("wide_window_search 120 s", score, lag, *oracle)
+    check(lag == 50 * SAMPLE_RATE, "wide_window_search 120 s: lag %d, planted %d" % (lag, 50 * SAMPLE_RATE))
+    return dict(grid=grid.shape, requests=dp, full_score=score, full_lag=lag, full_seconds=seconds,
+                oracle_score=oracle[0])
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -730,6 +933,9 @@ def main():
     from sushi_tpu_torch.ops import build
 
     device = torch.device("cuda")
+    # phases 3-6 run on one card, whatever SUSHI_MESH says: they are what
+    # phase 7's mesh runs are held against
+    batcher._MESH_STATE[:] = [None]
     shutil.rmtree(WORK, ignore_errors=True)
     os.makedirs(WORK)
     os.environ["SUSHI_STREAM_CACHE"] = os.path.join(WORK, "stream_cache")
@@ -757,15 +963,18 @@ def main():
     worst_group, worst_line = check_headline(headline, out_path, cold.results, HEADLINE["shift"])
     warm_seconds, warm, _ = sync_episode(headline, out_path, device)
     check_headline(headline, out_path, warm.results, HEADLINE["shift"])
+    with open(out_path, "rb") as handle:
+        headline_srt = handle.read()
     log(
         "phase 3: cold sync %.3f s (ingest %.3f, search %.3f), warm sync %.3f s (ingest %.3f, "
         "search %.3f); %d device rounds, %d requests, dispatch %.3f s, fetch %.3f s; buckets %s; "
+        "kernel model %.6g GFLOP, gathered %.6g GB; "
         "kernel launches %s; worst group error %.3g s, worst line error %.4f s  ok"
         % (cold_seconds, cold.seconds["load_pair"], cold.seconds["calculate_shifts"],
            warm_seconds, warm.seconds["load_pair"], warm.seconds["calculate_shifts"],
            summary["rounds"], summary["requests"], summary["dispatch_seconds"],
-           summary["fetch_seconds"], json.dumps(summary["buckets"]), launches["phase 3"], worst_group,
-           worst_line)
+           summary["fetch_seconds"], json.dumps(summary["buckets"]), summary["kernel_gflop"],
+           summary["gathered_gb"], launches["phase 3"], worst_group, worst_line)
     )
 
     # phase 4: the pathological pair vs the sequential float64 oracle
@@ -808,7 +1017,7 @@ def main():
     # phase 6: wide windows at the real FFT cap, against the plain path on the CPU
     check(batcher._MAX_FFT == 1 << 22, "wide: the FFT cap is %d, not 2^22" % batcher._MAX_FFT)
     reset_launches()
-    wide = check_wide_windows(device, **WIDE)
+    wide, wide_host, wide_device = check_wide_windows(device, **WIDE)
     launches["phase 6"] = require_launched("wide windows", launch_counts())
     for name, route, (score, _, _), times, cpu_seconds, buckets in wide:
         log(
@@ -817,6 +1026,70 @@ def main():
             % (name, route, score, times[0], times[1], cpu_seconds, json.dumps(buckets))
         )
     log("phase 6: kernel launches %s  ok" % launches["phase 6"])
+
+    # phase 7: phases 3, 5 and 6 again with every chunk's rows split over a
+    # ('dp',) mesh: outputs identical to theirs, every member working
+    from sushi_tpu_torch.parallel.sharded_search import make_mesh
+
+    members = mesh_members()
+    mesh = make_mesh((len(members),), ("dp",), members)
+    log("phase 7: mesh of %d members %s over %d visible card(s)"
+        % (len(members), [str(member) for member in members], torch.cuda.device_count()))
+    batcher._MESH_STATE[:] = [mesh]
+    mesh_out = os.path.join(WORK, "headline", "mesh.srt")
+    reset_launches()
+    with _ShapeRecorder() as shapes:
+        # each path twice: its first use of the mesh (the streams' copies on
+        # the other members, their cuFFT plans), then warm
+        mesh_syncs = []
+        for _ in range(2):
+            mesh_syncs.append(sync_episode(headline, mesh_out, device))
+            check_mesh_headline(mesh_out, headline_srt, mesh_syncs[-1][1].results, warm.results)
+        mesh_seasons = [mesh_season(season["jobs"], SEASON["io_threads"], device) for _ in range(2)]
+        wide_mesh = mesh_wide(wide_device, WIDE["cases"], wide)
+        searches = mesh_searches(members, wide_host, WIDE["cases"][0])
+    launches["phase 7"] = require_launched("mesh", launch_counts())
+    batcher._MESH_STATE[:] = [None]
+    (first_seconds, _, _), (mesh_seconds, _, mesh_summary) = mesh_syncs
+    (first_season_seconds, _, _), (mesh_season_seconds, mesh_merged, mesh_season_summary) = mesh_seasons
+    headline_rows = require_every_member("mesh headline", mesh_summary, len(members))
+    season_rows = require_every_member("mesh season", mesh_season_summary, len(members))
+    [(_, _, _, chunk_rows)] = [r for r in wide_mesh if r[0] == "lag-chunked"]
+    check(len(chunk_rows) == len(members) and min(chunk_rows) > 0,
+          "mesh wide: the lag chunks did not land on every member: %s" % chunk_rows)
+    log(
+        "phase 7: headline sync on the mesh %.3f s at its first use, %.3f s warm (phase 3 warm %.3f s), "
+        ".srt byte-identical and group shifts equal to phase 3's both times; warm: %d rounds, %d requests, "
+        "dispatch %.3f s, fetch %.3f s; padded rows per member %s; kernel model %.6g GFLOP, gathered "
+        "%.6g GB  ok"
+        % (first_seconds, mesh_seconds, warm_seconds, mesh_summary["rounds"], mesh_summary["requests"],
+           mesh_summary["dispatch_seconds"], mesh_summary["fetch_seconds"], headline_rows,
+           mesh_summary["kernel_gflop"], mesh_summary["gathered_gb"])
+    )
+    log(
+        "phase 7: season on the mesh %.3f s at its first use, %.3f s warm (phase 5 warm %.3f s), %d merged "
+        "rounds, every output byte-identical to phase 5's both times; padded rows per member %s  ok"
+        % (first_season_seconds, mesh_season_seconds, season["warm"]["seconds"], len(mesh_merged),
+           season_rows)
+    )
+    for name, (score, _, _), times, rows in wide_mesh:
+        log("phase 7: wide %s on the mesh: (score, lag) bit-identical to phase 6 (score %.9g), %.3f s at "
+            "first use, %.3f s warm; padded rows per member %s  ok" % (name, score, times[0], times[1], rows))
+    log(
+        "phase 7: sharded_alignment_step and wide_window_search on a %s grid within the oracle's lag and "
+        "1e-3 of its score; 3 s pattern in a 120 s window: lag %d, score %.9g (oracle %.9g), %.3f s  ok"
+        % (json.dumps(searches["grid"]), searches["full_lag"], searches["full_score"],
+           searches["oracle_score"], searches["full_seconds"])
+    )
+    uncovered = sorted(shapes.shapes - {launch_shape(entry) for entry in KERNEL_SHAPES})
+    for index, shape in enumerate(uncovered):
+        _, _, _, rescore_err, coarse_err = hold_kernels(*shape, device, seed=1000 + index)
+        for name, err in (("rescore", rescore_err), ("coarse_post", coarse_err)):
+            records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+    torch.cuda.empty_cache()
+    log("phase 7: kernel launches %s at %d shapes (B, n, pat_cap, chunk rows) %s; the %d that phase 2 does not time, "
+        "held against the plain versions: %s  ok"
+        % (launches["phase 7"], len(shapes.shapes), sorted(shapes.shapes), len(uncovered), uncovered))
 
     kernels = []
     for name, source, replaces, extra in (

@@ -19,12 +19,17 @@ nothing of that package).  The device part
 is ported: :func:`upload_stream`, :class:`DeviceMatcher` and
 :func:`execute_planned_multi`, which runs each round as bucketed
 ``sqdiff.match_from_streams_bounds`` calls with one host->device copy of
-the ``[4, B]`` bounds per chunk and ONE device->host copy per round.
+the ``[4, B]`` bounds per chunk and ONE device->host copy per round.  With
+``SUSHI_MESH=<n>`` cards (or a mesh a caller installs) every chunk's rows split
+over a ``('dp',)`` :class:`~sushi_tpu_torch.parallel.sharded_search.DeviceMesh`
+(:func:`production_mesh`, :func:`_sharded_match_packed`).
 """
 
 from __future__ import annotations
 
 import logging
+import math
+import os
 import threading
 import time
 from dataclasses import dataclass, field
@@ -40,6 +45,13 @@ from sushi_tpu_torch.media import stream_cache
 from sushi_tpu_torch.media.stream import PADDING_SECONDS, AudioStream
 from sushi_tpu_torch import resolve_device
 from sushi_tpu_torch.ops import sqdiff
+from sushi_tpu_torch.parallel.sharded_search import (
+    DeviceMesh,
+    chunk_wide_window,
+    make_mesh,
+    member_device,
+    split_rows,
+)
 
 _log = logging.getLogger("sushi_tpu")
 
@@ -50,10 +62,25 @@ _BATCH_BUCKETS = (1, 8, 32, 64, 128)
 _MAX_BATCH_ELEMENTS = 1 << 26
 
 
-def _padded_batch(b: int) -> int:
-    """Rows to pad a ``b``-row chunk to: the smallest batch bucket that
-    holds it (one device; the JAX package's mesh rounding is not ported)."""
-    return next((s for s in _BATCH_BUCKETS if s >= b), _BATCH_BUCKETS[-1])
+def _padded_batch(b: int, mesh_devices: int = 1) -> int:
+    """Rows to pad a ``b``-row chunk to: quantize to a batch bucket FIRST,
+    then round up to a multiple of the member count, so every member takes
+    an equal slice.  With one device this is plain bucket quantization."""
+    bucket = next((s for s in _BATCH_BUCKETS if s >= b), _BATCH_BUCKETS[-1])
+    return -(-bucket // mesh_devices) * mesh_devices
+
+
+def kernel_flop_model(fft_size: int, pat_cap: int = 0, rescore_k: int = 16) -> float:
+    """Model flop per batch ROW of one match call (the JAX package's
+    unpooled formula).
+
+    Coarse pass: 3 real transforms — rfft(pattern), rfft(window),
+    irfft(correlation) — at ~2.5 n log2 n flop each, plus ~14n elementwise
+    (sliding energy, masking, score assembly).  Exact rescore: 4 flop per
+    pattern sample per candidate lag, rescore_k + 2 plateau candidates.
+    """
+    coarse = 3 * 2.5 * fft_size * math.log2(fft_size) + 14 * fft_size
+    return coarse + (rescore_k + 2) * 4 * (pat_cap or fft_size)
 
 
 @dataclass
@@ -65,14 +92,27 @@ class RoundStats:
     fetch_seconds: float = 0.0
     # {fft_size: [real_rows, padded_rows, chunks]}
     buckets: Dict[int, List[int]] = field(default_factory=dict)
+    kernel_gflop: float = 0.0
+    gathered_bytes: int = 0
+    # padded rows each mesh member matched, in member order (one entry
+    # without a mesh)
+    member_rows: List[int] = field(default_factory=list)
     # the host thread that ran the round (a season's seeds run on ingest threads)
     thread: int = field(default_factory=threading.get_ident)
 
-    def record_chunk(self, fft_size: int, rows: int, padded_rows: int) -> None:
+    def record_chunk(
+        self, fft_size: int, rows: int, padded_rows: int,
+        pat_cap: int = 0, rescore_k: int = 16, members: int = 1,
+    ) -> None:
         bucket = self.buckets.setdefault(fft_size, [0, 0, 0])
         bucket[0] += rows
         bucket[1] += padded_rows
         bucket[2] += 1
+        self.kernel_gflop += padded_rows * kernel_flop_model(fft_size, pat_cap, rescore_k) / 1e9
+        self.gathered_bytes += padded_rows * fft_size * 2 * 4  # f32 pattern+window rows
+        self.member_rows += [0] * (members - len(self.member_rows))
+        for member in range(members):
+            self.member_rows[member] += padded_rows // members
 
 
 class Telemetry:
@@ -86,17 +126,24 @@ class Telemetry:
 
     def summary(self) -> Dict[str, object]:
         buckets: Dict[int, List[int]] = {}
+        member_rows: List[int] = []
         for r in self.rounds:
             for fft_size, (rows, padded, chunks) in r.buckets.items():
                 b = buckets.setdefault(fft_size, [0, 0, 0])
                 b[0] += rows
                 b[1] += padded
                 b[2] += chunks
+            member_rows += [0] * (len(r.member_rows) - len(member_rows))
+            for member, rows in enumerate(r.member_rows):
+                member_rows[member] += rows
         return {
             "rounds": len(self.rounds),
             "requests": sum(r.requests for r in self.rounds),
             "dispatch_seconds": sum(r.dispatch_seconds for r in self.rounds),
             "fetch_seconds": sum(r.fetch_seconds for r in self.rounds),
+            "kernel_gflop": sum(r.kernel_gflop for r in self.rounds),
+            "gathered_gb": sum(r.gathered_bytes for r in self.rounds) / 1e9,
+            "member_rows": member_rows,
             "buckets": {str(k): v for k, v in sorted(buckets.items())},
         }
 
@@ -130,9 +177,121 @@ def _fft_bucket(value: int) -> int:
     return min(_smooth_size(value), _MAX_FFT)
 
 
-# device residency memo: {(stream cache_key, device): tensor}.  A warm sync
-# of an episode whose streams are already on the device skips the upload.
-_UPLOAD_MEMO: Dict[Tuple[str, str], torch.Tensor] = {}
+# --- production mesh -------------------------------------------------------
+# With a mesh (SUSHI_MESH=<n> cards, or one a caller installs) every
+# chunk's rows split over a 1-D ('dp',) mesh:
+# streams are copied to every member, each member matches its equal slice
+# of the rows with the hand-written kernels on its own device, and only the
+# [2, b] results travel, to the first member.  Wide windows are lag-chunked
+# into rows (plan_wide_chunks) before the split, so the same axis carries
+# the lag split ("sp"): one oversized search's chunks land on different
+# members.  A row's result depends on its own data alone, so the split
+# leaves every result bit-identical to one device.
+
+_MESH_STATE: List[Optional[DeviceMesh]] = []  # [] unprobed, [None] one device, [mesh]
+_MESH_LOCK = threading.Lock()
+
+
+def production_mesh() -> Optional[DeviceMesh]:
+    """The ('dp',) mesh over the first SUSHI_MESH=<n> visible CUDA cards
+    (fewer if fewer are visible), or None.
+
+    Opt-in, unlike the JAX package's mesh (every device unless
+    SUSHI_MESH=off): one host thread launches every member's work, so on
+    H100s a split is slower than one card (``README.md``).  Unset, off, 0,
+    none or 1 is one device.  Probed once into ``_MESH_STATE``, which tests
+    may set to a mesh of their own (members may repeat a device, CPU
+    members too).
+    """
+    with _MESH_LOCK:
+        if not _MESH_STATE:
+            _MESH_STATE.append(_probe_mesh())
+        return _MESH_STATE[0]
+
+
+def _probe_mesh() -> Optional[DeviceMesh]:
+    env = os.environ.get("SUSHI_MESH", "")
+    if env.lower() in ("", "off", "none"):
+        return None
+    if not env.isdigit():
+        raise SushiError("SUSHI_MESH is %r: give off or a member count" % env)
+    count = min(torch.cuda.device_count() if torch.cuda.is_available() else 0, int(env))
+    if count <= 1:
+        return None
+    _log.info("search mesh: dp=%d devices", count)
+    return make_mesh((count,), ("dp",), [torch.device("cuda", i) for i in range(count)])
+
+
+def _indexed(device) -> torch.device:
+    """``device`` with its index: a bare "cuda" is the current card."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def search_mesh(device) -> Optional[DeviceMesh]:
+    """The mesh a search whose streams lie on ``device`` runs over, or None.
+
+    CUDA streams take :func:`production_mesh`.  CPU streams take a mesh
+    only when one of CPU members was installed in ``_MESH_STATE`` (as the
+    tests do): a sync asked to run on the CPU never spreads onto the cards.
+    A mesh that applies but does not hold ``device`` is an error.
+    """
+    device = _indexed(device)
+    if device.type == "cuda":
+        mesh = production_mesh()
+    else:
+        mesh = _MESH_STATE[0] if _MESH_STATE else None
+        if mesh is not None and all(member.type != device.type for member in mesh.devices):
+            mesh = None
+    if mesh is not None and device not in mesh.devices:
+        raise SushiError(
+            "the search mesh %r does not hold the streams' device %s" % (mesh, device)
+        )
+    return mesh
+
+
+def _placement(device) -> List[torch.device]:
+    """The devices a stream on ``device`` must be copied to: ``device``
+    first, then every other member of its search mesh, each once."""
+    device = _indexed(device)
+    mesh = search_mesh(device)
+    return list(dict.fromkeys([device] + (mesh.devices if mesh is not None else [])))
+
+
+def _replicate_on_mesh(tensor: torch.Tensor) -> Dict[torch.device, torch.Tensor]:
+    """{device: tensor}: ``tensor`` and its copies on the other member
+    devices of its search mesh, its own device first (just ``tensor``
+    without a mesh).  A device that stands in the mesh twice holds one
+    copy."""
+    return {device: tensor.to(device) for device in _placement(tensor.device)}
+
+
+def _sharded_match_packed(
+    members: List[torch.device], pair: "StreamPair", bounds: np.ndarray, **kwargs
+) -> torch.Tensor:
+    """``match_from_streams_bounds`` with a chunk's rows split over
+    ``members`` (the mesh's, or just the pair's device).  The ``[4, B]``
+    bounds (a numpy array; B a multiple of the member count) are cut along
+    B into equal member slices; each slice goes to its member with one
+    host->device copy and is matched there against the member's copy of
+    the streams, with the rescore grid of all B rows; the ``[2, b]``
+    results are joined on the first member in member order."""
+    rows = bounds.shape[1]
+
+    def match(member, part):
+        member_bounds = torch.from_numpy(np.ascontiguousarray(bounds[:, part])).to(member)
+        return (sqdiff.match_from_streams_bounds(*pair.on(member), member_bounds, chunk_rows=rows, **kwargs),)
+
+    (packed,) = split_rows(members, rows, match, dim=1)
+    return packed
+
+
+# device residency memo: {(stream cache_key, placement): {device: tensor}},
+# one entry per stream with its copies on every mesh member.  A warm sync of
+# an episode whose streams are already on the device skips the upload.
+_UPLOAD_MEMO: Dict[Tuple[str, Tuple[str, ...]], Dict[torch.device, torch.Tensor]] = {}
 _UPLOAD_MEMO_MAX = 64
 
 # {(src cache_key, dst cache_key): whole-stream alignment estimate}
@@ -144,22 +303,23 @@ _DELTA0_MEMO: Dict[Tuple[str, str], int] = {}
 _MEMO_LOCK = threading.Lock()
 
 
-def upload_stream(stream: AudioStream, device) -> torch.Tensor:
-    """Device tensor of a stream's analysis buffer, memoized.
+def upload_stream(stream: AudioStream, device) -> Dict[torch.device, torch.Tensor]:
+    """A stream's analysis buffer on ``device`` and on every other member
+    of its search mesh, memoized: {device: tensor}, ``device`` first.
 
     uint8 stays uint8 (the match converts after gathering), padded with
     zeros by the largest slice any bucket can gather (``_MAX_FFT``), so
     fixed-size row gathers never clamp."""
-    device = torch.device(device)
+    placement = _placement(device)
     key = getattr(stream, "cache_key", None)
-    memo_key = (key, str(device))
+    memo_key = (key, tuple(str(member) for member in placement))
     if key is not None:
         with _MEMO_LOCK:
             cached = _UPLOAD_MEMO.get(memo_key)
-        if cached is not None and cached.shape[0] >= len(stream.data) + _MAX_FFT:
+        if cached is not None and cached[placement[0]].shape[0] >= len(stream.data) + _MAX_FFT:
             return cached
-    padded = np.pad(np.ascontiguousarray(stream.data), (0, _MAX_FFT))
-    uploaded = torch.from_numpy(padded).to(device)
+    padded = torch.from_numpy(np.pad(np.ascontiguousarray(stream.data), (0, _MAX_FFT)))
+    uploaded = _replicate_on_mesh(padded.to(placement[0]))
     if key is not None:
         with _MEMO_LOCK:
             while len(_UPLOAD_MEMO) >= _UPLOAD_MEMO_MAX:
@@ -255,15 +415,18 @@ class DeviceMatcher:
         self._patterns = PatternTable(groups)
         self._rescore_k = rescore_k
         self._max_batch_elements = max_batch_elements
-        # uploaded once in the native dtype; re-uploads of a stream already
-        # resident on the device are skipped via the upload memo
-        self._src_dev = upload_stream(src_stream, self.device)
-        self._dst_dev = upload_stream(dst_stream, self.device)
+        # uploaded once in the native dtype, with a copy on every member of
+        # the search mesh; re-uploads of a stream already resident are
+        # skipped via the upload memo
+        self._pair = StreamPair(
+            upload_stream(src_stream, self.device), upload_stream(dst_stream, self.device)
+        )
+        self._src_dev = self._pair.src_dev
+        self._dst_dev = self._pair.dst_dev
         self._src_len = len(src_stream.data)
         self._dst_len = len(dst_stream.data)
         self._src_key = getattr(src_stream, "cache_key", None)
         self._dst_key = getattr(dst_stream, "cache_key", None)
-        self._pair = StreamPair(self._src_dev, self._dst_dev)
 
     @property
     def pair(self) -> "StreamPair":
@@ -319,15 +482,15 @@ class DeviceMatcher:
                     _DELTA0_MEMO[memo_key] = stored
                 return stored
 
-        coarse = sqdiff.pooled_alignment_peak(
-            self._src_dev, self._dst_dev, self._src_len, self._dst_len
-        )
+        with member_device(self._pair.device):
+            coarse = sqdiff.pooled_alignment_peak(
+                self._src_dev, self._dst_dev, self._src_len, self._dst_len
+            )
         delta0 = coarse
         refine = _probe_refine_plan(coarse, self._src_len, self._dst_len, self._dst.sample_rate)
         if refine is not None:
-            result = execute_planned(
-                self._src_dev, self._dst_dev, [refine], self._rescore_k,
-                self._max_batch_elements,
+            result = execute_planned_multi(
+                [(self._pair, refine)], self._rescore_k, self._max_batch_elements
             )
             delta0 = result[refine.key][2] - refine.pat_start
 
@@ -353,18 +516,39 @@ class PlannedSearch:
     sample_rate: int
 
 
-@dataclass(frozen=True, eq=False)
 class StreamPair:
-    """Device-resident (src, dst) buffers one or more searches gather from.
+    """Device-resident (src, dst) buffers one or more searches gather from,
+    with their copies on the other members of the search mesh.
 
-    Identity-hashed: two pairs are the same operand set only if they are the
-    same object.  A round takes items of several pairs, so the season sync
-    (:mod:`sushi_tpu_torch.season`) merges episodes' requests into shared
-    rounds; one episode's sync passes one pair.
+    ``src``/``dst`` are tensors, or {device: tensor} copies as
+    :func:`upload_stream` and :func:`_replicate_on_mesh` return them, the
+    pair's own device first.  Identity-hashed: two pairs are the same
+    operand set only if they are the same object.  A round takes items of
+    several pairs, so the season sync (:mod:`sushi_tpu_torch.season`)
+    merges episodes' requests into shared rounds; one episode's sync
+    passes one pair.
     """
 
-    src_dev: object
-    dst_dev: object
+    def __init__(self, src, dst):
+        self._src = dict(src) if isinstance(src, dict) else {src.device: src}
+        self._dst = dict(dst) if isinstance(dst, dict) else {dst.device: dst}
+        self.device = next(iter(self._src))
+
+    @property
+    def src_dev(self) -> torch.Tensor:
+        return self._src[self.device]
+
+    @property
+    def dst_dev(self) -> torch.Tensor:
+        return self._dst[self.device]
+
+    def on(self, device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The (src, dst) copies on a mesh member's device."""
+        if device not in self._src or device not in self._dst:
+            raise SushiError(
+                "the streams have no copy on mesh member %s (upload them with the mesh in place)" % device
+            )
+        return self._src[device], self._dst[device]
 
 
 @dataclass(frozen=True)
@@ -378,29 +562,6 @@ class _WideChunk:
 # preferred fft size for wide-window lag chunks: large enough to amortize,
 # small enough that a handful of chunk rows fit one batch
 _WIDE_CHUNK_FFT = 1 << 20
-
-
-def chunk_wide_window(
-    window_length: int, pattern_length: int, num_chunks: int
-) -> List[Tuple[int, int]]:
-    """Cut one window's lag range into ``num_chunks`` (offset, length) spans
-    (copy of ``sushi_tpu.parallel.sharded_search.chunk_wide_window``).
-
-    Chunk ``i`` owns lags ``[offset, offset + lag_count)`` and needs window
-    samples ``[offset, offset + length)`` where ``length`` includes the
-    pattern-length overlap, so chunks can be matched independently.
-    """
-    total_lags = window_length - pattern_length + 1
-    base = -(-total_lags // num_chunks)  # ceil
-    spans = []
-    for i in range(num_chunks):
-        lag_offset = min(i * base, total_lags)
-        lag_count = min(base, total_lags - lag_offset)
-        if lag_count <= 0:
-            spans.append((window_length, 0))  # empty tail chunk
-        else:
-            spans.append((lag_offset, lag_count + pattern_length - 1))
-    return spans
 
 
 def plan_wide_chunks(item: PlannedSearch, max_fft: int) -> Optional[List[PlannedSearch]]:
@@ -442,7 +603,8 @@ def execute_planned(
     rescore_k: int = 16,
     max_batch_elements: int = _MAX_BATCH_ELEMENTS,
 ) -> Dict[object, Tuple[float, float, int]]:
-    """Run planned searches against one (src, dst) stream pair."""
+    """Run planned searches against one (src, dst) stream pair: tensors,
+    or {device: tensor} copies on a mesh (:func:`_replicate_on_mesh`)."""
     pair = StreamPair(src_dev, dst_dev)
     return execute_planned_multi(
         [(pair, item) for item in planned], rescore_k, max_batch_elements
@@ -455,16 +617,17 @@ def _match_alone(pair: StreamPair, item: PlannedSearch, rescore_k: int) -> torch
     its whole window (both kernels take any multiple of 128 lags).  Its
     rows are gathered at their own lengths, which lie inside the buffers."""
     fft_size = _smooth_size(item.win_len)
-    bounds = torch.tensor(
-        [item.pat_start, item.pat_len, item.win_start, item.win_len], dtype=torch.int32
-    ).to(pair.src_dev.device)
-    pattern = sqdiff.gather_rows(pair.src_dev, bounds[0:1], bounds[1:2], item.pat_len)
-    window = sqdiff.gather_rows(pair.dst_dev, bounds[2:3], bounds[3:4], item.win_len)
-    scores, lags = sqdiff.match_padded_batch(
-        pattern, bounds[1:2], window, bounds[3:4], fft_size, rescore_k,
-        pat_cap=min(_smooth_size(item.pat_len), fft_size),
-    )
-    return torch.stack([scores, lags.to(torch.float32)])
+    with member_device(pair.device):
+        bounds = torch.tensor(
+            [item.pat_start, item.pat_len, item.win_start, item.win_len], dtype=torch.int32
+        ).to(pair.device)
+        pattern = sqdiff.gather_rows(pair.src_dev, bounds[0:1], bounds[1:2], item.pat_len)
+        window = sqdiff.gather_rows(pair.dst_dev, bounds[2:3], bounds[3:4], item.win_len)
+        scores, lags = sqdiff.match_padded_batch(
+            pattern, bounds[1:2], window, bounds[3:4], fft_size, rescore_k,
+            pat_cap=min(_smooth_size(item.pat_len), fft_size),
+        )
+        return torch.stack([scores, lags.to(torch.float32)])
 
 
 def execute_planned_multi(
@@ -477,12 +640,17 @@ def execute_planned_multi(
     Each item names the :class:`StreamPair` it gathers from, so searches
     over different episodes can share a round.  Requests bucket by FFT
     size and chunks pad to a few batch sizes; each chunk costs one
-    host->device copy of its ``[4, B]`` bounds, and the whole round ONE
+    host->device copy of its ``[4, B]`` bounds (one per member slice on a
+    mesh, see :func:`_sharded_match_packed`), and the whole round ONE
     device->host copy of the joined ``[2, sum B]`` results.  Results are
     keyed by each item's ``key``: (score, found time, absolute dst sample).
     """
     stats = RoundStats(requests=len(items))
     TELEMETRY.rounds.append(stats)
+    # the round's pairs share the first pair's mesh: a pair without a copy
+    # on a member raises there (StreamPair.on)
+    mesh = search_mesh(items[0][0].device) if items else None
+    members = len(mesh.devices) if mesh is not None else 1
 
     results: Dict[object, Tuple[float, float, int]] = {}
     by_bucket: Dict[Tuple[StreamPair, int], List[PlannedSearch]] = {}
@@ -516,7 +684,7 @@ def execute_planned_multi(
         for chunk_start in range(0, len(bucket_items), max_b):
             chunk = bucket_items[chunk_start : chunk_start + max_b]
             b = len(chunk)
-            padded_b = _padded_batch(b)
+            padded_b = _padded_batch(b, members)
             rows = chunk + [chunk[0]] * (padded_b - b)
             # bound on every pattern length for the exact rescore, bucketed
             # like the FFT: its work is O(pat_cap) per candidate
@@ -530,24 +698,23 @@ def execute_planned_multi(
                 ],
                 np.int32,
             )
-            packed = sqdiff.match_from_streams_bounds(
-                pair.src_dev,
-                pair.dst_dev,
-                torch.from_numpy(bounds).to(pair.src_dev.device),
-                fft_size=fft_size,
-                slice_len=fft_size,
-                rescore_k=rescore_k,
-                pat_cap=pat_cap,
+            packed = _sharded_match_packed(
+                mesh.devices if mesh is not None else [pair.device], pair, bounds,
+                fft_size=fft_size, slice_len=fft_size, rescore_k=rescore_k, pat_cap=pat_cap,
             )
             in_flight.append((chunk, padded_b, packed))
-            stats.record_chunk(fft_size, b, padded_b)
+            stats.record_chunk(fft_size, b, padded_b, pat_cap, rescore_k, members)
     for pair, item in alone:
         _log.warning(
             "pattern of %d samples exceeds the lag-chunk FFT cap; matched alone "
             "at FFT size %d", item.pat_len, _smooth_size(item.win_len),
         )
-        in_flight.append(([item], 1, _match_alone(pair, item, rescore_k)))
-        stats.record_chunk(_smooth_size(item.win_len), 1, 1)
+        packed = _match_alone(pair, item, rescore_k)
+        if mesh is not None:
+            packed = packed.to(mesh.devices[0])  # joins the round on the first member
+        in_flight.append(([item], 1, packed))
+        fft_size = _smooth_size(item.win_len)
+        stats.record_chunk(fft_size, 1, 1, min(_smooth_size(item.pat_len), fft_size), rescore_k)
 
     if in_flight:
         stats.dispatch_seconds = time.perf_counter() - dispatch_started

@@ -16,7 +16,10 @@ memory and streams the row's K candidate window segments against it,
 float32 terms and float64 partial sums into a ``[B, S, K]`` scratch; a
 second launch sums the S partials in a fixed order.
 :func:`rescore_geometry` chooses C and S so that the grid fills the card;
-:func:`rescore_chunks` states which terms each block sums.  The JAX
+:func:`rescore_chunks` states which terms each block sums.  C and S group
+a row's partial sums, so a mesh member matching a slice of a chunk takes
+them from the whole chunk's rows (``chunk_rows``): each row then sums as
+it does when the chunk runs on one device.  The JAX
 package's TPU gate at 2^19 samples (VMEM) does not apply — it takes every
 n.
 """
@@ -93,6 +96,7 @@ def rescore_candidates(
     windows: torch.Tensor,
     candidate_lags: torch.Tensor,
     pat_cap: Optional[int] = None,
+    chunk_rows: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact (num, energy) [B, K] at K candidate lags per row.
 
@@ -101,7 +105,9 @@ def rescore_candidates(
     patterns/windows [B, n] float32, pat_lens [B] int32, candidate_lags
     [B, K] int32, all contiguous on one device; ``pat_cap`` bounds every
     pat_len, and sizes the grid (:func:`rescore_geometry`); a longer pattern
-    is still summed whole, by more strides per block.
+    is still summed whole, by more strides per block.  ``chunk_rows``
+    (default B) is the rows of the whole chunk these B rows are a mesh
+    member's slice of: the grid's C and S follow it, not B.
     """
     if patterns.device.type == "cpu":
         return rescore_candidates_plain(patterns, pat_lens, windows, candidate_lags, pat_cap)
@@ -115,7 +121,8 @@ def rescore_candidates(
         ("pat_lens", pat_lens, torch.int32, (batch,)),
         ("candidate_lags", candidate_lags, torch.int32, (batch, k_count)),
     ))
-    chunk, chunks = rescore_geometry(batch, n if pat_cap is None else min(int(pat_cap), n))
+    chunk, chunks = rescore_geometry(
+        batch if chunk_rows is None else chunk_rows, n if pat_cap is None else min(int(pat_cap), n))
     num = torch.empty(batch, k_count, dtype=torch.float32, device=patterns.device)
     energy = torch.empty_like(num)
     num_part = torch.empty(batch, chunks, k_count, dtype=torch.float64, device=patterns.device)

@@ -23,7 +23,12 @@ the kernels through their wrappers, which launch them for CUDA tensors.
 
 Every formulation is row-local: a row's result is a function of that
 row's data only, never of its batch neighbours (the batched search relies
-on it; see ``tests/test_sqdiff.py`` row-locality test).
+on it; see ``tests/test_sqdiff.py`` row-locality test).  A chunk split
+over mesh members must give the whole chunk's results bit for bit: the
+members pass the chunk's rows as ``chunk_rows``, :func:`row_energy` sums
+a row in an order of its own, where a library reduction would pick its
+order from the slice's shape, and :func:`correlate_rows` gives cuFFT at
+most ``FFT_ROWS`` rows at a time.
 """
 
 from __future__ import annotations
@@ -77,13 +82,45 @@ def oracle_match(pattern: np.ndarray, window: np.ndarray) -> Tuple[float, int]:
 # Coarse pass.
 
 
+# rows per cuFFT call.  cuFFT picks its plan from the batch too, and a plan
+# for many rows can round a row differently than one for few: on the H100
+# (CUDA 12.8) rfft/irfft of 65536 samples at 128 rows differ from one row
+# at a time, while batches of up to 64 rows equal it at every bucket size
+# (chip_row_locality.py).  Calls of at most FFT_ROWS rows keep a row's
+# correlation independent of its batch, so a chunk split over mesh
+# members correlates as the whole chunk does.
+FFT_ROWS = 64
+
+
 def correlate_rows(patterns: torch.Tensor, windows: torch.Tensor, fft_size: int) -> torch.Tensor:
     """Per-row circular cross-correlation ``irfft(rfft(w) * conj(rfft(p)))``
-    (2 r2c + 1 c2r per row on cuFFT; row-local by construction).  Rows
-    narrower than ``fft_size`` are zero-padded by the transform."""
-    pat_f = torch.fft.rfft(patterns, n=fft_size)
-    win_f = torch.fft.rfft(windows, n=fft_size)
-    return torch.fft.irfft(win_f * torch.conj(pat_f), n=fft_size)
+    (2 r2c + 1 c2r per row on cuFFT), in calls of at most ``FFT_ROWS``
+    rows.  Rows narrower than ``fft_size`` are zero-padded by the
+    transform."""
+    corr = torch.empty(patterns.shape[0], fft_size, dtype=patterns.dtype, device=patterns.device)
+    for start in range(0, patterns.shape[0], FFT_ROWS):
+        rows = slice(start, start + FFT_ROWS)
+        pat_f = torch.fft.rfft(patterns[rows], n=fft_size)
+        win_f = torch.fft.rfft(windows[rows], n=fft_size)
+        torch.fft.irfft(win_f * torch.conj(pat_f), n=fft_size, out=corr[rows])
+    return corr
+
+
+def row_energy(rows: torch.Tensor, width: Optional[int] = None) -> torch.Tensor:
+    """sum_i rows[b, i]^2 per row as float32, summed in an order fixed by
+    the row alone: float64 squares (exact), zero-padded to a power of two,
+    added in adjacent pairs level by level.  ``torch.sum`` would choose its
+    order (threads and blocks per row) from the number of rows, so one row
+    could sum differently in a batch of 8 and in a member's slice of 4.
+    ``width`` bounds the nonzero prefix of every row (a ``pat_cap``);
+    padding with zeros leaves the pairs of a prefix, and so the sum, as
+    they are."""
+    n = rows.shape[1] if width is None else min(int(width), rows.shape[1])
+    sums = rows[:, :n].to(torch.float64).square()
+    sums = torch.nn.functional.pad(sums, (0, (1 << max(n - 1, 0).bit_length()) - n))
+    while sums.shape[1] > 1:
+        sums = sums[:, 0::2] + sums[:, 1::2]
+    return sums[:, 0].to(torch.float32)
 
 
 def energy_prefix(windows: torch.Tensor) -> torch.Tensor:
@@ -151,7 +188,7 @@ def coarse_scores(
     """Unclamped normalized-SSD scores [B, fft_size] for all lags of a
     padded batch; lags past ``win_len - pat_len`` hold +2.0."""
     corr = correlate_rows(patterns, windows, fft_size)
-    pat_energy = torch.sum(patterns * patterns, dim=1)
+    pat_energy = row_energy(patterns)
     return scores_from_corr(
         corr, _pad_to(windows, fft_size), pat_lens, win_lens - pat_lens + 1, pat_energy
     )
@@ -215,13 +252,18 @@ def exact_select(
     win_lens: torch.Tensor,
     candidates: torch.Tensor,
     pat_cap: Optional[int],
+    pat_energy: Optional[torch.Tensor] = None,
+    chunk_rows: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact-rescore the candidate lags (the rescore kernel's wrapper) and
-    pick cv2's (score, lag)."""
+    pick cv2's (score, lag); ``pat_energy`` is :func:`row_energy` of the
+    patterns (computed here when not given); ``chunk_rows`` as in
+    :func:`match_padded_batch`."""
     from sushi_tpu_torch.ops import rescore
 
-    num, energy = rescore.rescore_candidates(patterns, pat_lens, windows, candidates, pat_cap)
-    pat_energy = torch.sum(patterns * patterns, dim=1)
+    num, energy = rescore.rescore_candidates(patterns, pat_lens, windows, candidates, pat_cap, chunk_rows)
+    if pat_energy is None:
+        pat_energy = row_energy(patterns, pat_cap)
     return pick_exact(num, energy, pat_energy, win_lens - pat_lens + 1, candidates)
 
 
@@ -261,11 +303,15 @@ def match_padded_batch(
     fft_size: int,
     rescore_k: int = 16,
     pat_cap: Optional[int] = None,
+    chunk_rows: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Best (score, lag) per row of a padded batch, cv2-convention.
 
     patterns/windows: [B, <= fft_size] float32, zero past their lengths;
-    pat_lens/win_lens: [B] int32; ``pat_cap`` a bound on every pat_len.
+    pat_lens/win_lens: [B] int32; ``pat_cap`` a bound on every pat_len;
+    ``chunk_rows`` the rows of the whole chunk when these B rows are a
+    mesh member's slice of it (the rescore kernel's grid follows it, so
+    each row sums as on one device; default B).
     Returns scores [B] float32 (clamped to 1.0 like cv2) and lags [B]
     int32 (first minimal lag; 0 when nothing scores below 1.0).
 
@@ -278,13 +324,13 @@ def match_padded_batch(
     patterns = _pad_to(patterns, fft_size)
     windows = _pad_to(windows, fft_size)
     corr = correlate_rows(patterns, windows, fft_size)
-    pat_energy = torch.sum(patterns * patterns, dim=1)
+    pat_energy = row_energy(patterns, pat_cap)
     lag_counts = win_lens - pat_lens + 1
     block_min, block_arg, first_tight, first_loose = coarse.coarse_post(
         corr, windows, pat_lens, lag_counts, pat_energy
     )
     candidates = select_candidates(block_min, block_arg, first_tight, first_loose, rescore_k)
-    return exact_select(patterns, pat_lens, windows, win_lens, candidates, pat_cap)
+    return exact_select(patterns, pat_lens, windows, win_lens, candidates, pat_cap, pat_energy, chunk_rows)
 
 
 def gather_rows(stream: torch.Tensor, starts: torch.Tensor, lengths: torch.Tensor, slice_len: int) -> torch.Tensor:
@@ -314,6 +360,7 @@ def match_from_streams_bounds(
     slice_len: int,
     rescore_k: int = 16,
     pat_cap: Optional[int] = None,
+    chunk_rows: Optional[int] = None,
 ) -> torch.Tensor:
     """Gather (pattern, window) rows from device-resident streams and match.
 
@@ -322,13 +369,13 @@ def match_from_streams_bounds(
     result is ONE ``[2, B]`` float32 (row 0 scores, row 1 lags — exact in
     float32 since lags < 2^24), so a round's chunks join into one
     device->host copy.  Streams must be padded at the end by at least
-    ``slice_len``.
+    ``slice_len``; ``chunk_rows`` as in :func:`match_padded_batch`.
     """
     pat_lens, win_lens = bounds[1], bounds[3]
     patterns = gather_rows(src, bounds[0], pat_lens, slice_len)
     windows = gather_rows(dst, bounds[2], win_lens, slice_len)
     scores, lags = match_padded_batch(
-        patterns, pat_lens, windows, win_lens, fft_size, rescore_k, pat_cap
+        patterns, pat_lens, windows, win_lens, fft_size, rescore_k, pat_cap, chunk_rows
     )
     return torch.stack([scores, lags.to(torch.float32)])
 

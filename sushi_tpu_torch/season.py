@@ -1,4 +1,5 @@
-"""Season sync on PyTorch: pipelined batch sync of many episodes on one device.
+"""Season sync on PyTorch: pipelined batch sync of many episodes on one device
+(or on the members of the search mesh, see ``batcher.production_mesh``).
 
 Port of :mod:`sushi_tpu.season` (the port imports nothing of the JAX
 package).  The reference engine (Sushi) processes one
@@ -62,6 +63,7 @@ from sushi_tpu_torch.align.batcher import (
     SearchSession,
     execute_planned_multi,
     groups_to_spans,
+    search_mesh,
 )
 from sushi_tpu_torch.pipeline import KeyframeData, format_full_path, postprocess_events
 
@@ -442,8 +444,11 @@ def sync_season(
     if temp_dir and not os.path.exists(temp_dir):
         os.makedirs(temp_dir)
 
-    # create the CUDA context here, not lazily inside an ingest thread
-    torch.empty(0, device=device)
+    # create the CUDA context of every mesh member here, not lazily inside
+    # an ingest thread
+    mesh = search_mesh(device)
+    for member in mesh.devices if mesh is not None else [device]:
+        torch.empty(0, device=member)
     started = time.time()
     all_demuxers: List[Demuxer] = []
     registry = _DemuxRegistry()

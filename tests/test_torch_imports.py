@@ -1,5 +1,5 @@
-"""The port stands alone: no file of ``sushi_tpu_torch/``, and neither
-``chip_smoke.py`` nor ``chip_kernels.py``, imports ``jax`` or anything of the JAX package
+"""The port stands alone: no file of ``sushi_tpu_torch/``, and no
+``chip_*.py`` script at the root, imports ``jax`` or anything of the JAX package
 (``sushi_tpu`` and its submodules), at any depth: imports inside functions
 and ``importlib.import_module`` / ``__import__`` calls with a literal name
 count too.  A static check with ``ast``; the subprocess tests in
@@ -16,7 +16,8 @@ FORBIDDEN = ("jax", "jaxlib", "sushi_tpu")
 
 
 def _port_files():
-    files = [os.path.join(REPO_ROOT, name) for name in ("chip_smoke.py", "chip_kernels.py")]
+    files = [os.path.join(REPO_ROOT, name) for name in os.listdir(REPO_ROOT)
+             if name.startswith("chip_") and name.endswith(".py")]
     for directory, _, names in os.walk(os.path.join(REPO_ROOT, "sushi_tpu_torch")):
         files += [os.path.join(directory, name) for name in names if name.endswith(".py")]
     return sorted(os.path.relpath(path, REPO_ROOT) for path in files)
@@ -48,7 +49,8 @@ PORT_FILES = _port_files()
 
 
 def test_port_files_found():
-    assert "chip_smoke.py" in PORT_FILES and "chip_kernels.py" in PORT_FILES
+    for script in ("chip_smoke.py", "chip_kernels.py", "chip_row_locality.py", "chip_warm.py"):
+        assert script in PORT_FILES
     for module in ("cli.py", "season.py", "errors.py", os.path.join("media", "stream_cache.py"),
                    os.path.join("align", "machine.py"), os.path.join("ops", "coarse.py")):
         assert os.path.join("sushi_tpu_torch", module) in PORT_FILES

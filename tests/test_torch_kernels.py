@@ -22,9 +22,13 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
-from chip_smoke import KERNEL_SHAPES  # noqa: E402
+from chip_smoke import KERNEL_SHAPES as _LAUNCHED  # noqa: E402
 from sushi_tpu.ops import pallas_coarse, pallas_ssd  # noqa: E402
 from sushi_tpu_torch.ops import coarse, rescore, sqdiff  # noqa: E402
+
+# (batch, n, pat_cap) of each launch shape (a mesh member's slice also
+# names its chunk's rows, which size its rescore grid)
+KERNEL_SHAPES = tuple(shape[:3] for shape in _LAUNCHED)
 
 
 def _rescore_inputs(rng, n, lp, batch=4, k=8):
