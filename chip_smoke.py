@@ -43,9 +43,26 @@ on the card, then checks it:
    ``wide_window_search`` on a ('dp', 'sp') grid against the float64
    oracle, one of them a 3 s pattern in a 120 s window; and both kernels
    held against their plain versions at every (B, n, pat_cap, chunk rows)
-   the phase launched that phase 2 does not time.
+   the phase launched that phase 2 does not time;
+8. the opt-in pooled coarse-to-fine search (``SUSHI_COARSE_POOL``): (a) the
+   rescore kernel at pooled candidate counts (K = 90 * P up to 5760, past
+   one slab of shared memory) and the coarse kernel at pooled widths (down
+   to 128 lags) against their plain versions, timed; (b) the headline
+   episode through the CLI with P = 4, warm: rescore launched with K = 360,
+   and the first chunk of each pooled bucket (8 rows) equal to the plain
+   path on CPU copies of the streams (lags equal, scores rtol 1e-6); (c) the
+   score gate at full width (bucket 262144): a planted row and a garbage
+   row equal to the float64 oracle, one full-rate retry in a second round,
+   and with the gate off one round and none; (d) times only: the pooled
+   sync beside phase 3's, and one chunk at 128x262144 and 128x393216 full
+   rate vs P = 4 vs P = 8.
 
-Every kernel launch counter is set to 0 just before each of phases 3-7
+Phase 3's cold sync runs the pipelined ingest: each stream uploads from
+its ingest thread (``INGEST_STATS["upload_seconds"] > 0``), the sync's
+``DeviceMatcher`` takes the upload memo's tensors (no second upload), and
+the deferred stream-cache files read back equal to the decoded buffers.
+
+Every kernel launch counter is set to 0 just before each of phases 3-8
 drives its path and read just after; each phase fails if a kernel was not
 launched; the launches per phase are printed at the end.  Any failed
 check exits non-zero.  The last two lines of standard output are the
@@ -139,6 +156,26 @@ WIDE = dict(
     ),
 )
 WIDE_SCORE_RTOL = 1e-6
+# phase 8: the rescore kernel at pooled candidate counts, K = (8 + 2) *
+# (2 * 4 + 1) * P for P = 4, 8, 16, 32 and 64 (K = 18 is the full-rate
+# search's), at the verified probe's and the rewind's shapes; the coarse
+# kernel at the pooled widths n / P of the headline's buckets (phase 3's
+# batches) for P = 4, 8, 32, and at the narrowest widths
+POOLED_RESCORE = (
+    ((128, 393216, 49152), (18, 360, 720, 1440, 2880)),
+    ((128, 262144, 24576), (18, 360, 720, 1440, 2880)),
+    ((8, 786432, 65536), (5760,)),
+)
+POOLED_COARSE = tuple(
+    (batch, n // pool) for batch, n in ((128, 65536), (64, 98304), (128, 262144), (128, 393216))
+    for pool in (4, 8, 32)
+) + ((128, 128), (128, 512), (128, 1024))
+HEADLINE_POOL = 4
+POOLED_CPU_ROWS = 8  # rows of each captured chunk re-run on the CPU (row-local)
+POOLED_CPU_CHUNKS = 4
+# tests/test_search.py's score-gate fixture: (key, pat_start, pat_len, win_start, win_len)
+GATE = dict(seed=21, src=300000, dst=400000, plant=50000,
+            rows=(("hit", 0, 30000, 0, 200000), ("garbage", 40000, 30000, 100000, 200000)))
 
 
 class SmokeFailure(Exception):
@@ -303,21 +340,7 @@ def hold_kernels(batch, n, pat_cap, chunk_rows, device, seed):
     lag_counts = win_lens - pat_lens + 1
     coarse_args = (corr, windows, pat_lens, lag_counts, pat_energy)
 
-    got = coarse.coarse_post(*coarse_args)
-    want = coarse.coarse_post_plain(*coarse_args)
-    coarse_err = float(torch.max(torch.abs(got[0] - want[0])))
-    check(coarse_err <= BLOCK_MIN_ATOL, "coarse_post block_min off by %g at %dx%d" % (coarse_err, batch, n))
-    for part, got_part, want_part in zip(("block_arg", "first_tight", "first_loose"), got[1:], want[1:]):
-        check(torch.equal(got_part, want_part), "coarse_post %s differs from plain at %dx%d" % (part, batch, n))
-    # tie seeds inside their bands of the plain scores
-    scores = sqdiff.scores_from_corr(*coarse_args)
-    row_min = torch.amin(scores, dim=1)
-    scale = 1.0 + torch.abs(row_min)
-    for seed_lags, band in ((got[2], sqdiff.TIGHT_BAND), (got[3], sqdiff.LOOSE_BAND)):
-        seed_scores = torch.gather(scores, 1, seed_lags.to(torch.int64)[:, None])[:, 0]
-        check(bool(torch.all(seed_scores <= row_min + band * scale)),
-              "coarse_post tie seed outside its band at %dx%d" % (batch, n))
-    del scores
+    got, want, coarse_err = hold_coarse(coarse_args)
 
     kernel_cands = sqdiff.select_candidates(*got, 16)
     plain_cands = sqdiff.select_candidates(*want, 16)
@@ -335,6 +358,42 @@ def hold_kernels(batch, n, pat_cap, chunk_rows, device, seed):
     check(torch.equal(kernel_pick[1], plain_pick[1]) and torch.equal(kernel_pick[0], plain_pick[0]),
           "kernel and plain paths pick different (score, lag) at %dx%d" % (batch, n))
     return (patterns, pat_lens, windows, win_lens), coarse_args, kernel_cands, rescore_err, coarse_err
+
+
+def coarse_arguments(patterns, pat_lens, windows, win_lens, pat_cap):
+    """The coarse kernel's operands for a batch, as ``match_padded_batch``
+    makes them."""
+    from sushi_tpu_torch.ops import sqdiff
+
+    n = patterns.shape[1]
+    corr = sqdiff.correlate_rows(patterns, windows, n)
+    return corr, windows, pat_lens, win_lens - pat_lens + 1, sqdiff.row_energy(patterns, pat_cap)
+
+
+def hold_coarse(coarse_args):
+    """The coarse kernel vs its plain version on one batch's operands:
+    block_min within BLOCK_MIN_ATOL, block args and tie seeds equal, the
+    seeds inside their bands of the plain scores.  Returns the kernel's and
+    the plain outputs and the worst block_min error."""
+    import torch
+
+    from sushi_tpu_torch.ops import coarse, sqdiff
+
+    batch, n = coarse_args[0].shape
+    got = coarse.coarse_post(*coarse_args)
+    want = coarse.coarse_post_plain(*coarse_args)
+    coarse_err = float(torch.max(torch.abs(got[0] - want[0])))
+    check(coarse_err <= BLOCK_MIN_ATOL, "coarse_post block_min off by %g at %dx%d" % (coarse_err, batch, n))
+    for part, got_part, want_part in zip(("block_arg", "first_tight", "first_loose"), got[1:], want[1:]):
+        check(torch.equal(got_part, want_part), "coarse_post %s differs from plain at %dx%d" % (part, batch, n))
+    scores = sqdiff.scores_from_corr(*coarse_args)
+    row_min = torch.amin(scores, dim=1)
+    scale = 1.0 + torch.abs(row_min)
+    for seed_lags, band in ((got[2], sqdiff.TIGHT_BAND), (got[3], sqdiff.LOOSE_BAND)):
+        seed_scores = torch.gather(scores, 1, seed_lags.to(torch.int64)[:, None])[:, 0]
+        check(bool(torch.all(seed_scores <= row_min + band * scale)),
+              "coarse_post tie seed outside its band at %dx%d" % (batch, n))
+    return got, want, coarse_err
 
 
 def check_kernels(device):
@@ -451,6 +510,7 @@ class _Recorder:
 
     def __init__(self, pipeline):
         self.results = None
+        self.streams = None
         self.seconds = {}
         self._pipeline = pipeline
         self._originals = {name: getattr(pipeline, name) for name in ("load_pair", "calculate_shifts")}
@@ -471,6 +531,8 @@ class _Recorder:
             self.seconds[name] = time.perf_counter() - started
             if name == "calculate_shifts":
                 self.results = result
+            else:
+                self.streams = result
             return result
 
         return wrapper
@@ -772,6 +834,54 @@ def require_launched(what, counts):
     return counts
 
 
+class _UploadRecorder:
+    """Counts the device uploads (``batcher._replicate_on_mesh``, called on
+    an upload memo miss) and the threads that make them."""
+
+    def __init__(self, batcher):
+        self.threads = []
+        self._batcher = batcher
+        self._original = batcher._replicate_on_mesh
+
+    def __enter__(self):
+        def recording(tensor):
+            self.threads.append(threading.get_ident())
+            return self._original(tensor)
+
+        self._batcher._replicate_on_mesh = recording
+        return self
+
+    def __exit__(self, *exc):
+        self._batcher._replicate_on_mesh = self._original
+
+
+def check_cold_ingest(streams, uploads):
+    """Phase 3's cold sync ran the pipelined ingest: two uploads, both on
+    ingest threads and none after (the DeviceMatcher's were memo hits that
+    hold those tensors), upload seconds counted, and after
+    ``flush_writes()`` each stream's cache file equal to its decoded
+    buffer.  Returns ``INGEST_STATS``."""
+    import numpy as np
+
+    from sushi_tpu_torch.align import batcher
+    from sushi_tpu_torch.media import stream_cache
+
+    stats = dict(stream_cache.INGEST_STATS)
+    check(stats["upload_seconds"] > 0, "cold ingest: no upload seconds counted")
+    check(len(uploads.threads) == 2 and threading.get_ident() not in uploads.threads,
+          "cold ingest: %d uploads, %d on the main thread (want 2 on ingest threads)"
+          % (len(uploads.threads), uploads.threads.count(threading.get_ident())))
+    stream_cache.flush_writes()
+    directory = stream_cache.cache_dir()
+    for stream in streams:
+        check(stream.cache_key is not None and any(key[0] == stream.cache_key for key in batcher._UPLOAD_MEMO),
+              "cold ingest: a stream is not in the upload memo")
+        cached = stream_cache._try_read(directory, stream.cache_key)
+        check(cached is not None and np.array_equal(np.asarray(cached.data), np.asarray(stream.data)),
+              "cold ingest: the deferred cache file of %s does not read back equal" % stream.cache_key)
+    return stats
+
+
 # ---------------------------------------------------------------------------
 # phase 7: the paths of phases 3, 5 and 6 with every chunk split over a mesh
 
@@ -790,12 +900,15 @@ def mesh_members():
 class _ShapeRecorder:
     """Records the (B, n, pat_cap, chunk_rows) of every kernel launch on the
     card: wraps ``sqdiff.exact_select``, through which every match reaches
-    the rescore kernel just after the coarse kernel ran at the same (B, n)."""
+    the rescore kernel just after the coarse kernel ran at the same (B, n)
+    (at full rate).  With ``candidates`` each shape also names the
+    candidate count K."""
 
-    def __init__(self):
+    def __init__(self, candidates=False):
         from sushi_tpu_torch.ops import sqdiff
 
         self.shapes = set()
+        self._candidates = candidates
         self._sqdiff = sqdiff
         self._original = sqdiff.exact_select
 
@@ -805,7 +918,8 @@ class _ShapeRecorder:
             if patterns.device.type == "cuda":
                 batch, n = patterns.shape
                 self.shapes.add((batch, n, n if pat_cap is None else min(int(pat_cap), n),
-                                 batch if chunk_rows is None else chunk_rows))
+                                 batch if chunk_rows is None else chunk_rows)
+                                + ((candidates.shape[1],) if self._candidates else ()))
             return self._original(patterns, pat_lens, windows, win_lens, candidates, pat_cap, pat_energy,
                                   chunk_rows)
 
@@ -920,6 +1034,232 @@ def mesh_searches(members, host_streams, case):
 
 
 # ---------------------------------------------------------------------------
+# phase 8: the opt-in pooled coarse-to-fine search
+
+
+def pooled_lags(batch, n, k_count, seed):
+    """[B, K] int32 candidates as the pooled search makes them: 10
+    neighbourhoods of K / 10 consecutive lags a row (K = 18: two seeds and
+    16 single lags), clipped to [0, n - 1]."""
+    import numpy as np
+    import torch
+
+    rng = np.random.RandomState(seed)
+    width = max(k_count // 10, 1)
+    bases = rng.randint(-width, n, (batch, -(-k_count // width)))
+    lags = (bases[:, :, None] + np.arange(width)[None, None, :]).reshape(batch, -1)[:, :k_count]
+    return torch.from_numpy(np.clip(lags, 0, n - 1).astype(np.int32))
+
+
+def hold_rescore(patterns, pat_lens, windows, lags, pat_cap, chunk_rows=None):
+    """The rescore kernel vs its plain version on one batch (rtol
+    RESCORE_RTOL); returns the worst absolute error and whether the two
+    are equal bit for bit."""
+    import torch
+
+    from sushi_tpu_torch.ops import rescore
+
+    batch, n = patterns.shape
+    got = rescore.rescore_candidates(patterns, pat_lens, windows, lags, pat_cap, chunk_rows)
+    want = rescore.rescore_candidates_plain(patterns, pat_lens, windows, lags, pat_cap)
+    for got_sum, want_sum in zip(got, want):
+        rel = float(torch.max(torch.abs(got_sum - want_sum) / torch.clamp_min(torch.abs(want_sum), 1e-30)))
+        check(rel <= RESCORE_RTOL, "rescore off by rel %g at %dx%d/%d K=%d" % (rel, batch, n, pat_cap, lags.shape[1]))
+    err = max(float(torch.max(torch.abs(g - w))) for g, w in zip(got, want))
+    return err, all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+def pooled_label(batch, n, pat_cap, k_count, chunk_rows=None):
+    return shape_label(batch, n, pat_cap, batch if chunk_rows is None else chunk_rows) + " K=%d" % k_count
+
+
+def check_pooled_kernels(device, records):
+    """Phase 8 (a): both kernels at the pooled search's shapes against their
+    plain versions, timed; adds to ``records``.  Returns the log lines'
+    numbers: [(kernel, label, ms, plain_ms, bytes, bit-exact)]."""
+    import torch
+
+    from sushi_tpu_torch.ops import coarse, rescore
+
+    rows = []
+    for index, ((batch, n, pat_cap), counts) in enumerate(POOLED_RESCORE):
+        patterns, pat_lens, windows, _ = kernel_inputs(batch, n, pat_cap, device, seed=800 + index)
+        for k_count in counts:
+            lags = pooled_lags(batch, n, k_count, seed=k_count).to(device)
+            err, exact = hold_rescore(patterns, pat_lens, windows, lags, pat_cap)
+            label = pooled_label(batch, n, pat_cap, k_count)
+            ms = time_ms(lambda: rescore.rescore_candidates(patterns, pat_lens, windows, lags, pat_cap))
+            plain_ms = time_ms(lambda: rescore.rescore_candidates_plain(patterns, pat_lens, windows, lags, pat_cap),
+                               reps=10 if k_count <= 64 else 1)
+            nbytes = rescore_bytes(pat_lens.cpu(), lags.cpu(), n)
+            _record(records, "rescore", label, err, ms, plain_ms, nbytes)
+            rows.append(("rescore", label, ms, plain_ms, nbytes, exact))
+        del patterns, windows
+        torch.cuda.empty_cache()
+    for index, (batch, n) in enumerate(POOLED_COARSE):
+        pat_cap = max(n // 8, 16)
+        coarse_args = coarse_arguments(*kernel_inputs(batch, n, pat_cap, device, seed=900 + index), pat_cap)
+        got, want, err = hold_coarse(coarse_args)
+        ms = time_ms(lambda: coarse.coarse_post(*coarse_args))
+        plain_ms = time_ms(lambda: coarse.coarse_post_plain(*coarse_args))
+        nbytes = coarse_bytes(batch, n)
+        label = "%dx%d" % (batch, n)
+        _record(records, "coarse_post", label, err, ms, plain_ms, nbytes)
+        rows.append(("coarse_post", label, ms, plain_ms, nbytes, all(torch.equal(g, w) for g, w in zip(got, want))))
+        del coarse_args
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _record(records, name, label, err, ms, plain_ms, nbytes):
+    records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+    records[name]["times"][label] = (ms, plain_ms)
+    records[name]["bytes"][label] = nbytes
+
+
+class _PooledRecorder:
+    """Wraps ``sqdiff.match_from_streams_bounds`` and ``sqdiff._match_pooled``:
+    keeps the (B, n / P) of every pooled coarse pass, and one pooled chunk
+    of each bucket (at most ``POOLED_CPU_CHUNKS`` buckets): the first with
+    ``POOLED_CPU_ROWS`` rows or more, else the first with the most rows;
+    the streams, its bounds, its arguments and its [2, B] result."""
+
+    def __init__(self):
+        from sushi_tpu_torch.ops import sqdiff
+
+        self.coarse_shapes = set()
+        self.chunks = {}
+        self.streams = {}
+        self._sqdiff = sqdiff
+        self._originals = (sqdiff.match_from_streams_bounds, sqdiff._match_pooled)
+
+    def __enter__(self):
+        match, pooled = self._originals
+
+        def matching(src, dst, bounds, **kwargs):
+            result = match(src, dst, bounds, **kwargs)
+            fft_size = kwargs["fft_size"]
+            held = self.chunks.get(fft_size)
+            if kwargs.get("coarse_pool") and (
+                    held[1].shape[1] < min(bounds.shape[1], POOLED_CPU_ROWS) if held is not None
+                    else len(self.chunks) < POOLED_CPU_CHUNKS):
+                self.streams.setdefault((id(src), id(dst)), (src, dst))
+                self.chunks[fft_size] = ((id(src), id(dst)), bounds.cpu(), dict(kwargs), result.cpu())
+            return result
+
+        def pooling(patterns, *args, **kwargs):
+            self.coarse_shapes.add((patterns.shape[0], patterns.shape[1] // args[3]))
+            return pooled(patterns, *args, **kwargs)
+
+        self._sqdiff.match_from_streams_bounds = matching
+        self._sqdiff._match_pooled = pooling
+        return self
+
+    def __exit__(self, *exc):
+        self._sqdiff.match_from_streams_bounds, self._sqdiff._match_pooled = self._originals
+
+
+def pooled_cpu_parity(recorder):
+    """Phase 8 (b): the first ``POOLED_CPU_ROWS`` rows of each captured
+    pooled chunk through the plain path on CPU copies of the streams (a
+    row's result depends on its own data alone): lags equal, scores within
+    WIDE_SCORE_RTOL.  Returns [(fft_size, rows, worst relative score
+    difference)]."""
+    import torch
+
+    from sushi_tpu_torch.ops import sqdiff
+
+    host = {key: tuple(t.cpu() for t in pair) for key, pair in recorder.streams.items()}
+    checked = []
+    for fft_size, (key, bounds, kwargs, result) in sorted(recorder.chunks.items()):
+        rows = min(POOLED_CPU_ROWS, bounds.shape[1])
+        kwargs = {name: value for name, value in kwargs.items() if name != "chunk_rows"}
+        want = sqdiff.match_from_streams_bounds(*host[key], bounds[:, :rows].contiguous(), **kwargs)
+        check(torch.equal(result[1, :rows], want[1]),
+              "pooled %d: lags %s differ from the CPU plain path's %s"
+              % (fft_size, result[1, :rows].tolist(), want[1].tolist()))
+        rel = torch.abs(result[0, :rows] - want[0]) / torch.clamp_min(torch.abs(want[0]), 1e-30)
+        worst = float(torch.max(torch.where(want[0] == result[0, :rows], 0.0, rel)))
+        check(worst <= WIDE_SCORE_RTOL, "pooled %d: a score is off the CPU plain path's by rel %g" % (fft_size, worst))
+        checked.append((fft_size, rows, worst))
+    return checked
+
+
+def check_gate(device):
+    """Phase 8 (c): tests/test_search.py's score-gate fixture at its own size
+    (bucket 262144, P = HEADLINE_POOL) on the card, with the gate on and
+    off.  Returns {gate: (results, telemetry summary)}."""
+    import numpy as np
+    import torch
+
+    from sushi_tpu_torch.align import batcher
+    from sushi_tpu_torch.ops.sqdiff import oracle_match
+
+    rng = np.random.RandomState(GATE["seed"])
+    src = rng.randn(GATE["src"]).astype(np.float32)
+    dst = rng.randn(GATE["dst"]).astype(np.float32)  # zero-mean: unrelated rows score ~1.0
+    (_, _, pat_len, _, _), _ = GATE["rows"]
+    dst[GATE["plant"] : GATE["plant"] + pat_len] = src[:pat_len]
+    on_device = [torch.from_numpy(a).to(device) for a in (src, dst)]
+    planned = [batcher.PlannedSearch(key, ps, pl, ws, wl, 0.0, SAMPLE_RATE) for key, ps, pl, ws, wl in GATE["rows"]]
+    check(batcher._coarse_pool_for(262144, pat_len) == HEADLINE_POOL, "gate: the fixture's bucket is not pooled")
+    runs = {}
+    for gate in (True, False):
+        batcher._POOL_GATE = gate
+        try:
+            batcher.TELEMETRY.reset()
+            results = batcher.execute_planned(*on_device, planned)
+            summary = batcher.TELEMETRY.summary()
+        finally:
+            batcher._POOL_GATE = True
+        runs[gate] = (results, summary)
+    results, summary = runs[True]
+    for key, pat_start, pat_len, win_start, win_len in GATE["rows"]:
+        want_score, want_lag = oracle_match(src[pat_start : pat_start + pat_len], dst[win_start : win_start + win_len])
+        score, _, abs_sample = results[key]
+        check(abs_sample - win_start == want_lag and abs(score - want_score) <= 1e-5,
+              "gate: %s (%.9g, %d) against the oracle's (%.9g, %d)"
+              % (key, score, abs_sample - win_start, want_score, want_lag))
+    check(results["hit"][0] < batcher._POOL_GATE_TRUST <= results["garbage"][0],
+          "gate: hit %.6g, garbage %.6g against the trust %.2g"
+          % (results["hit"][0], results["garbage"][0], batcher._POOL_GATE_TRUST))
+    check(summary["pool_gate_retries"] == 1 and summary["rounds"] == 2,
+          "gate on: %d retries in %d rounds, expected 1 in 2" % (summary["pool_gate_retries"], summary["rounds"]))
+    summary = runs[False][1]
+    check(summary["pool_gate_retries"] == 0 and summary["rounds"] == 1,
+          "gate off: %d retries in %d rounds, expected 0 in 1" % (summary["pool_gate_retries"], summary["rounds"]))
+    return runs
+
+
+def pooled_chunk_times(streams, device):
+    """Phase 8 (d): one chunk of ``match_from_streams_bounds`` on the
+    headline's streams at 128x262144/24576 and 128x393216/49152 (the
+    verified probe's shapes): ms at full rate, P = 4 and P = 8, CUDA
+    events.  Returns {label: {pool: ms}}."""
+    import numpy as np
+    import torch
+
+    from sushi_tpu_torch.ops import sqdiff
+
+    src, dst = streams
+    rng = np.random.RandomState(8)
+    times = {}
+    for n, pat_cap in ((262144, 24576), (393216, 49152)):
+        pat_lens = rng.randint(pat_cap // 2, pat_cap + 1, 128)
+        win_lens = np.minimum(pat_lens + 240000, n)
+        starts = rng.randint(0, 10 * 60 * SAMPLE_RATE, (2, 128))
+        bounds = torch.from_numpy(np.array([starts[0], pat_lens, starts[1], win_lens], np.int32)).to(device)
+        label = "128x%d/%d" % (n, pat_cap)
+        times[label] = {
+            pool: time_ms(lambda: sqdiff.match_from_streams_bounds(
+                src, dst, bounds, fft_size=n, slice_len=n, rescore_k=16, pat_cap=pat_cap, coarse_pool=pool),
+                reps=5)
+            for pool in (None, 4, 8)
+        }
+    return times
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -930,6 +1270,7 @@ def main():
         return 2
     sys.path.insert(0, REPO)
     from sushi_tpu_torch.align import batcher
+    from sushi_tpu_torch.media import stream_cache
     from sushi_tpu_torch.ops import build
 
     device = torch.device("cuda")
@@ -957,8 +1298,11 @@ def main():
     out_path = os.path.join(WORK, "headline", "out.srt")
     launches = {}
     reset_launches()
-    cold_seconds, cold, summary = sync_episode(headline, out_path, device)
+    stream_cache.reset_ingest_stats()
+    with _UploadRecorder(batcher) as uploads:
+        cold_seconds, cold, summary = sync_episode(headline, out_path, device)
     launches["phase 3"] = require_launched("headline", launch_counts())
+    ingest = check_cold_ingest(cold.streams, uploads)
     check(any(int(size) > 1 << 17 for size in summary["buckets"]), "headline: no bucket above 2^17")
     worst_group, worst_line = check_headline(headline, out_path, cold.results, HEADLINE["shift"])
     warm_seconds, warm, _ = sync_episode(headline, out_path, device)
@@ -975,6 +1319,12 @@ def main():
            summary["rounds"], summary["requests"], summary["dispatch_seconds"],
            summary["fetch_seconds"], json.dumps(summary["buckets"]), summary["kernel_gflop"],
            summary["gathered_gb"], launches["phase 3"], worst_group, worst_line)
+    )
+    log(
+        "phase 3: cold ingest pipelined: %d uploads, each on an ingest thread (upload %.3f s, decode %.3f s, "
+        "summed over the threads), the sync's DeviceMatcher took the memo's tensors; the deferred stream "
+        "cache files read back equal to the decoded buffers; cold sync %.3f s  ok"
+        % (len(uploads.threads), ingest["upload_seconds"], ingest["decode_seconds"], cold_seconds)
     )
 
     # phase 4: the pathological pair vs the sequential float64 oracle
@@ -1090,6 +1440,81 @@ def main():
     log("phase 7: kernel launches %s at %d shapes (B, n, pat_cap, chunk rows) %s; the %d that phase 2 does not time, "
         "held against the plain versions: %s  ok"
         % (launches["phase 7"], len(shapes.shapes), sorted(shapes.shapes), len(uncovered), uncovered))
+
+    # phase 8: the opt-in pooled coarse-to-fine search
+    phase8_started = time.perf_counter()
+    for kernel, label, ms, plain_ms, nbytes, exact in check_pooled_kernels(device, records):
+        log("phase 8: %-11s %-30s %.4f ms (plain %.4f), %d bytes, bound %.2f us at 3.35 TB/s (%.1f%%), "
+            "bit-exact %s  ok" % (kernel, label, ms, plain_ms, nbytes, bound_ms(nbytes) * 1e3,
+                                  100.0 * bound_ms(nbytes) / ms, exact))
+    pooled_out = os.path.join(WORK, "headline", "pooled.srt")
+    batcher._COARSE_POOL_ENV = HEADLINE_POOL
+    try:
+        reset_launches()
+        with _ShapeRecorder(candidates=True) as pooled_shapes, _PooledRecorder() as captured:
+            pooled_seconds, pooled_sync, pooled_summary = sync_episode(headline, pooled_out, device)
+        pooled_warm = [sync_episode(headline, pooled_out, device)[0] for _ in range(2)]
+        launches["phase 8"] = require_launched("pooled", launch_counts())
+        # the gate fixture is a path of its own: its own count and shapes
+        reset_launches()
+        with _ShapeRecorder(candidates=True) as gate_shapes, _PooledRecorder() as gate_pooled:
+            gate = check_gate(device)
+        launches["phase 8 gate"] = require_launched("gate", launch_counts())
+    finally:
+        batcher._COARSE_POOL_ENV = 0
+    k_pooled = 90 * HEADLINE_POOL
+    check(any(shape[4] == k_pooled for shape in pooled_shapes.shapes),
+          "pooled: rescore never launched with K = %d: %s" % (k_pooled, sorted(pooled_shapes.shapes)))
+    check(captured.chunks, "pooled: no chunk ran the pooled search")
+    parity = pooled_cpu_parity(captured)
+    differ = [(r.shift, w.shift) for r, w in zip(pooled_sync.results, warm.results) if r.shift != w.shift]
+    largest = max((abs(a - b) * SAMPLE_RATE for a, b in differ if a is not None and b is not None), default=0.0)
+    log("phase 8: headline sync with SUSHI_COARSE_POOL=%d: %.3f s first, %.3f / %.3f s warm (phase 3 warm %.3f s); "
+        "%d rounds, %d pool gate retries, buckets %s; rescore shapes (B, n, pat_cap, chunk rows, K) %s; pooled "
+        "coarse shapes (B, n/P) %s; %d of %d group shifts differ from phase 3's full-rate run, by up to %.1f "
+        "samples (recorded, not checked)"
+        % (HEADLINE_POOL, pooled_seconds, pooled_warm[0], pooled_warm[1], warm_seconds, pooled_summary["rounds"],
+           pooled_summary["pool_gate_retries"], json.dumps(pooled_summary["buckets"]),
+           sorted(pooled_shapes.shapes), sorted(captured.coarse_shapes), len(differ), len(warm.results), largest))
+    for fft_size, rows, worst in parity:
+        log("phase 8: pooled chunk of bucket %d, first %d rows: lags equal to the CPU plain path's, scores within "
+            "rel %.3g  ok" % (fft_size, rows, worst))
+    for gate_on, (results, summary) in sorted(gate.items(), reverse=True):
+        log("phase 8: score gate %s: hit %.9g at %d, garbage %.9g at %d; %d retries, %d rounds  ok"
+            % ("on" if gate_on else "off", results["hit"][0], results["hit"][2], results["garbage"][0],
+               results["garbage"][2], summary["pool_gate_retries"], summary["rounds"]))
+    # both kernels at every shape of phase 8's path that no earlier check
+    # held, against their plain versions: full-rate shapes (the seed, the
+    # gate's retries) with both kernels, pooled ones one kernel at a time
+    held = {launch_shape(entry) for entry in KERNEL_SHAPES} | shapes.shapes
+    path_shapes = pooled_shapes.shapes | gate_shapes.shapes
+    full_rate = sorted({shape[:4] for shape in path_shapes if shape[4] == 18 and shape[:4] not in held})
+    for index, shape in enumerate(full_rate):
+        _, _, _, rescore_err, coarse_err = hold_kernels(*shape, device, seed=1500 + index)
+        for name, err in (("rescore", rescore_err), ("coarse_post", coarse_err)):
+            records[name]["max_abs_err"] = max(records[name]["max_abs_err"], err)
+    rescore_uncovered = sorted(shape for shape in path_shapes if shape[4] != 18 and
+                               pooled_label(*shape[:3], shape[4], shape[3]) not in records["rescore"]["times"])
+    for index, (batch, n, pat_cap, chunk_rows, k_count) in enumerate(rescore_uncovered):
+        patterns, pat_lens, windows, _ = kernel_inputs(batch, n, pat_cap, device, seed=2000 + index)
+        err, _ = hold_rescore(patterns, pat_lens, windows, pooled_lags(batch, n, k_count, index).to(device),
+                              pat_cap, chunk_rows)
+        records["rescore"]["max_abs_err"] = max(records["rescore"]["max_abs_err"], err)
+    coarse_uncovered = sorted((captured.coarse_shapes | gate_pooled.coarse_shapes) - set(POOLED_COARSE))
+    for index, (batch, n) in enumerate(coarse_uncovered):
+        pat_cap = max(n // 8, 16)
+        _, _, err = hold_coarse(coarse_arguments(*kernel_inputs(batch, n, pat_cap, device, seed=3000 + index), pat_cap))
+        records["coarse_post"]["max_abs_err"] = max(records["coarse_post"]["max_abs_err"], err)
+    torch.cuda.empty_cache()
+    log("phase 8: kernel launches %s in the pooled syncs, %s in the gate fixture (rescore shapes %s); held against "
+        "the plain versions at the shapes of both that no earlier check held: full rate %s, pooled rescore %s, "
+        "pooled coarse_post %s  ok"
+        % (launches["phase 8"], launches["phase 8 gate"], sorted(gate_shapes.shapes), full_rate,
+           rescore_uncovered, coarse_uncovered))
+    for label, by_pool in pooled_chunk_times(next(iter(captured.streams.values())), device).items():
+        log("phase 8: one chunk at %s: full rate %.4f ms, P=4 %.4f ms, P=8 %.4f ms (recorded)"
+            % (label, by_pool[None], by_pool[4], by_pool[8]))
+    log("phase 8: %.1f s" % (time.perf_counter() - phase8_started))
 
     kernels = []
     for name, source, replaces, extra in (

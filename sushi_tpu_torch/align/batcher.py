@@ -22,7 +22,9 @@ is ported: :func:`upload_stream`, :class:`DeviceMatcher` and
 the ``[4, B]`` bounds per chunk and ONE device->host copy per round.  With
 ``SUSHI_MESH=<n>`` cards (or a mesh a caller installs) every chunk's rows split
 over a ``('dp',)`` :class:`~sushi_tpu_torch.parallel.sharded_search.DeviceMesh`
-(:func:`production_mesh`, :func:`_sharded_match_packed`).
+(:func:`production_mesh`, :func:`_sharded_match_packed`).  The opt-in pooled
+coarse-to-fine search (``SUSHI_COARSE_POOL=<P>``) and its score gate
+(``SUSHI_POOL_GATE``) are read at import, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -70,17 +72,27 @@ def _padded_batch(b: int, mesh_devices: int = 1) -> int:
     return -(-bucket // mesh_devices) * mesh_devices
 
 
-def kernel_flop_model(fft_size: int, pat_cap: int = 0, rescore_k: int = 16) -> float:
+def kernel_flop_model(
+    fft_size: int, pat_cap: int = 0, rescore_k: int = 16, coarse_pool: int = 1,
+    pool_regions: int = 8, pool_slack: int = 4,
+) -> float:
     """Model flop per batch ROW of one match call (the JAX package's
-    unpooled formula).
+    formula).
 
-    Coarse pass: 3 real transforms — rfft(pattern), rfft(window),
-    irfft(correlation) — at ~2.5 n log2 n flop each, plus ~14n elementwise
-    (sliding energy, masking, score assembly).  Exact rescore: 4 flop per
-    pattern sample per candidate lag, rescore_k + 2 plateau candidates.
+    Coarse pass: 3 real transforms of coarse length — rfft(pattern),
+    rfft(window), irfft(correlation) — at ~2.5 n log2 n flop each, plus
+    ~14n full-rate elementwise (sliding energy, masking, score assembly).
+    Exact rescore: 4 flop per pattern sample per candidate lag; unpooled
+    that is rescore_k + 2 plateau candidates, pooled it is
+    (pool_regions + 2) neighbourhoods of (2*slack+1)*pool lags each.
     """
-    coarse = 3 * 2.5 * fft_size * math.log2(fft_size) + 14 * fft_size
-    return coarse + (rescore_k + 2) * 4 * (pat_cap or fft_size)
+    coarse_n = max(fft_size // max(coarse_pool, 1), 2)
+    coarse = 3 * 2.5 * coarse_n * math.log2(coarse_n) + 14 * fft_size
+    if coarse_pool > 1:
+        lags = (pool_regions + 2) * (2 * pool_slack + 1) * coarse_pool
+    else:
+        lags = rescore_k + 2
+    return coarse + lags * 4 * (pat_cap or fft_size)
 
 
 @dataclass
@@ -88,6 +100,7 @@ class RoundStats:
     """Telemetry for one execute_planned_multi call (one device round)."""
 
     requests: int = 0
+    pool_gate_retries: int = 0
     dispatch_seconds: float = 0.0
     fetch_seconds: float = 0.0
     # {fft_size: [real_rows, padded_rows, chunks]}
@@ -102,13 +115,15 @@ class RoundStats:
 
     def record_chunk(
         self, fft_size: int, rows: int, padded_rows: int,
-        pat_cap: int = 0, rescore_k: int = 16, members: int = 1,
+        pat_cap: int = 0, rescore_k: int = 16, coarse_pool: int = 1, members: int = 1,
     ) -> None:
         bucket = self.buckets.setdefault(fft_size, [0, 0, 0])
         bucket[0] += rows
         bucket[1] += padded_rows
         bucket[2] += 1
-        self.kernel_gflop += padded_rows * kernel_flop_model(fft_size, pat_cap, rescore_k) / 1e9
+        self.kernel_gflop += padded_rows * kernel_flop_model(
+            fft_size, pat_cap, rescore_k, coarse_pool
+        ) / 1e9
         self.gathered_bytes += padded_rows * fft_size * 2 * 4  # f32 pattern+window rows
         self.member_rows += [0] * (members - len(self.member_rows))
         for member in range(members):
@@ -139,6 +154,7 @@ class Telemetry:
         return {
             "rounds": len(self.rounds),
             "requests": sum(r.requests for r in self.rounds),
+            "pool_gate_retries": sum(r.pool_gate_retries for r in self.rounds),
             "dispatch_seconds": sum(r.dispatch_seconds for r in self.rounds),
             "fetch_seconds": sum(r.fetch_seconds for r in self.rounds),
             "kernel_gflop": sum(r.kernel_gflop for r in self.rounds),
@@ -260,6 +276,16 @@ def _placement(device) -> List[torch.device]:
     return list(dict.fromkeys([device] + (mesh.devices if mesh is not None else [])))
 
 
+def create_contexts(device) -> None:
+    """Creates the CUDA context of ``device`` and of every other member of
+    its search mesh on the calling thread, before ingest threads upload
+    to them.  Made lazily by the first upload, beside the other stream's
+    decode, it lengthened a fresh process's cold sync on one H100 (load
+    then took 1.2-1.9 s instead of 0.6-0.9 s, ``chip_warm.py``)."""
+    for member in _placement(device):
+        torch.empty(0, device=member)
+
+
 def _replicate_on_mesh(tensor: torch.Tensor) -> Dict[torch.device, torch.Tensor]:
     """{device: tensor}: ``tensor`` and its copies on the other member
     devices of its search mesh, its own device first (just ``tensor``
@@ -292,7 +318,84 @@ def _sharded_match_packed(
 # one entry per stream with its copies on every mesh member.  A warm sync of
 # an episode whose streams are already on the device skips the upload.
 _UPLOAD_MEMO: Dict[Tuple[str, Tuple[str, ...]], Dict[torch.device, torch.Tensor]] = {}
-_UPLOAD_MEMO_MAX = 64
+
+
+def _env_int(name: str, default: int) -> int:
+    """Integer env tunable; a malformed value warns and keeps the default
+    instead of raising at import time and killing every entry point."""
+    raw = os.environ.get(name)
+    if raw is None:
+        return default
+    try:
+        return int(raw)
+    except ValueError:
+        _log.warning("ignoring malformed %s=%r (want an integer)", name, raw)
+        return default
+
+
+# 64 streams of a 24-min episode are ~1.4 GB of the card's 80 GB, and enough
+# to keep a whole 24-episode season (48 streams) resident between batch runs
+_UPLOAD_MEMO_MAX = _env_int("SUSHI_UPLOAD_MEMO", 64)
+
+# Per-request pooled coarse-to-fine (ops/sqdiff._match_pooled) is an OPT-IN
+# throughput mode (SUSHI_COARSE_POOL=<width>), as in the JAX package, which
+# measured it on a TPU and kept exact full rate the default: on garbage or
+# corrupted spans (no real dip for the pooled envelope to find) the
+# full-rate minimum, a noise artifact the reference faithfully returns, can
+# fall outside every pooled neighbourhood; and mean pooling can mislocalize
+# flat-basin or aliased minima on clean audio by a few dozen samples at
+# scores the gate below cannot tell from a true match, hence the slack of 4
+# pooled blocks each side.  Decision parity with the reference is the
+# contract, so full rate stays the default at every bucket; bulk-sync
+# workloads that accept near-miss picks can opt in per process.
+#
+# Opted-in pooled rows whose best EXACT score fails a trust threshold
+# re-run full-rate in one follow-up mini-round of execute_planned_multi
+# (the score gate; SUSHI_POOL_GATE=0 disables it): garbage spans then
+# reproduce the reference's full-rate noise-argmin instead of a pooled
+# near-miss.  Both tunables are read once, at import (process-start
+# semantics; tests set the module constants).
+_COARSE_POOL_MIN_FFT = 1 << 15
+_COARSE_POOL_ENV = _env_int("SUSHI_COARSE_POOL", 0)
+_POOL_GATE = _env_int("SUSHI_POOL_GATE", 1) != 0
+# distrust pooled rows at/above this exact score: a true match on speech
+# audio scores far below it, and rows without one (garbage spans, noise
+# inserts) must reproduce the reference's full-rate argmin exactly
+_POOL_GATE_TRUST = 0.5
+# a pooled pattern needs enough envelope samples for its dip to survive
+# mean pooling; below this many *pooled* pattern samples, stay full-rate
+_COARSE_POOL_MIN_PAT_BLOCKS = 64
+_COARSE_POOL_WARNED: set = set()  # fft sizes already warned about
+
+
+def _coarse_pool_for(fft_size: int, min_pat_len: int) -> Optional[int]:
+    """Pool width for a bucket's coarse pass, or None for full rate."""
+    if _COARSE_POOL_ENV <= 1:
+        return None
+    pool = _COARSE_POOL_ENV
+    if fft_size < _COARSE_POOL_MIN_FFT:
+        return None
+    if fft_size % pool or (fft_size // pool) % 128:
+        # the pooled search reshapes rows to (n//pool, pool) and selects
+        # candidates in 128-lag blocks; a malformed tunable (pool=7, say)
+        # is ignored like _env_int ignores non-integers (warn once, not
+        # per chunk)
+        if fft_size not in _COARSE_POOL_WARNED:
+            _COARSE_POOL_WARNED.add(fft_size)
+            _log.warning(
+                "SUSHI_COARSE_POOL=%d does not evenly pool a %d-sample bucket; "
+                "running full-rate", pool, fft_size,
+            )
+        return None
+    if min_pat_len < _COARSE_POOL_MIN_PAT_BLOCKS * pool:
+        return None
+    return pool
+
+
+# Cumulative cold-seed seconds (the whole-stream coarse-to-fine alignment
+# estimate, paid only on a memo miss), so a measurement can split a cold
+# sync's search time.
+SEED_STATS = {"seed_seconds": 0.0}
 
 # {(src cache_key, dst cache_key): whole-stream alignment estimate}
 _DELTA0_MEMO: Dict[Tuple[str, str], int] = {}
@@ -435,16 +538,19 @@ class DeviceMatcher:
         :mod:`sushi_tpu_torch.season`)."""
         return self._pair
 
-    def plan(self, key, request: SearchRequest) -> "PlannedSearch":
+    def plan(self, key, request: SearchRequest, src_base: int = 0, dst_base: int = 0) -> "PlannedSearch":
+        """``request`` resolved to buffer sample ranges, offset by
+        ``src_base``/``dst_base`` for streams that start that far into a
+        larger device buffer."""
         pat_start, pat_len = self._patterns.bounds(request.group_idx, request.part)
         win_start, win_len, start_time = window_bounds(self._dst, request, pat_len)
         if win_len < pat_len:
             raise SushiError("search window shorter than pattern — broken input?")
         return PlannedSearch(
             key=key,
-            pat_start=pat_start,
+            pat_start=pat_start + src_base,
             pat_len=pat_len,
-            win_start=win_start,
+            win_start=win_start + dst_base,
             win_len=win_len,
             start_time=start_time,
             sample_rate=self._dst.sample_rate,
@@ -482,6 +588,7 @@ class DeviceMatcher:
                     _DELTA0_MEMO[memo_key] = stored
                 return stored
 
+        seed_started = time.time()
         with member_device(self._pair.device):
             coarse = sqdiff.pooled_alignment_peak(
                 self._src_dev, self._dst_dev, self._src_len, self._dst_len
@@ -493,6 +600,8 @@ class DeviceMatcher:
                 [(self._pair, refine)], self._rescore_k, self._max_batch_elements
             )
             delta0 = result[refine.key][2] - refine.pat_start
+        with _MEMO_LOCK:  # season ingest threads seed concurrently
+            SEED_STATS["seed_seconds"] += time.time() - seed_started
 
         if memo_key is not None:
             with _MEMO_LOCK:
@@ -634,6 +743,8 @@ def execute_planned_multi(
     items: Sequence[Tuple[StreamPair, PlannedSearch]],
     rescore_k: int = 16,
     max_batch_elements: int = _MAX_BATCH_ELEMENTS,
+    repeat: int = 1,
+    force_full_rate: bool = False,
 ) -> Dict[object, Tuple[float, float, int]]:
     """Run planned searches as bucketed batched kernel calls.
 
@@ -644,6 +755,16 @@ def execute_planned_multi(
     mesh, see :func:`_sharded_match_packed`), and the whole round ONE
     device->host copy of the joined ``[2, sum B]`` results.  Results are
     keyed by each item's ``key``: (score, found time, absolute dst sample).
+
+    Chunks whose bucket :func:`_coarse_pool_for` pools (opt-in) run the
+    pooled coarse pass; their rows scoring at or above ``_POOL_GATE_TRUST``
+    (no believable match, where a pooled pick may miss the full-rate one)
+    re-run full-rate in ONE recursive mini-round before results return,
+    unless ``_POOL_GATE`` is off.  ``force_full_rate`` is that re-run
+    (pooling off, no recursion).  ``repeat`` dispatches every chunk N times
+    before the one fetch (identical results; a measurement can take
+    device time per round from it).  A pattern too long to lag-chunk
+    (:func:`_match_alone`) stays full-rate.
     """
     stats = RoundStats(requests=len(items))
     TELEMETRY.rounds.append(stats)
@@ -656,6 +777,9 @@ def execute_planned_multi(
     by_bucket: Dict[Tuple[StreamPair, int], List[PlannedSearch]] = {}
     wide_parents: Dict[object, Tuple[PlannedSearch, List[object]]] = {}
     alone: List[Tuple[StreamPair, PlannedSearch]] = []
+    # {key: (pair, item)} of rows whose chunk ran a pooled coarse pass: the
+    # score gate's candidates for a full-rate re-run
+    pooled_items: Dict[object, Tuple[StreamPair, PlannedSearch]] = {}
     for pair, item in items:
         fft_size = _fft_bucket(item.win_len)
         if fft_size < item.win_len:
@@ -689,6 +813,12 @@ def execute_planned_multi(
             # bound on every pattern length for the exact rescore, bucketed
             # like the FFT: its work is O(pat_cap) per candidate
             pat_cap = min(_fft_bucket(max(r.pat_len for r in rows)), fft_size)
+            coarse_pool = (
+                None if force_full_rate
+                else _coarse_pool_for(fft_size, min(r.pat_len for r in chunk))
+            )
+            if coarse_pool:
+                pooled_items.update((r.key, (pair, r)) for r in chunk)
             bounds = np.array(
                 [
                     [r.pat_start for r in rows],
@@ -698,12 +828,14 @@ def execute_planned_multi(
                 ],
                 np.int32,
             )
-            packed = _sharded_match_packed(
-                mesh.devices if mesh is not None else [pair.device], pair, bounds,
-                fft_size=fft_size, slice_len=fft_size, rescore_k=rescore_k, pat_cap=pat_cap,
-            )
+            for _ in range(max(1, repeat)):
+                packed = _sharded_match_packed(
+                    mesh.devices if mesh is not None else [pair.device], pair, bounds,
+                    fft_size=fft_size, slice_len=fft_size, rescore_k=rescore_k, pat_cap=pat_cap,
+                    coarse_pool=coarse_pool,
+                )
             in_flight.append((chunk, padded_b, packed))
-            stats.record_chunk(fft_size, b, padded_b, pat_cap, rescore_k, members)
+            stats.record_chunk(fft_size, b, padded_b, pat_cap, rescore_k, coarse_pool or 1, members)
     for pair, item in alone:
         _log.warning(
             "pattern of %d samples exceeds the lag-chunk FFT cap; matched alone "
@@ -734,6 +866,26 @@ def execute_planned_multi(
                     float(all_scores[cursor + i]), float(found_time), item.win_start + lag
                 )
             cursor += padded_b
+
+    # score gate: pooled rows without a trusted match re-run full-rate, in
+    # one recursive mini-round whose stats append to TELEMETRY like any
+    # other round's
+    retry = [
+        pooled_items[key]
+        for key, (score, _, _) in results.items()
+        if key in pooled_items and score >= _POOL_GATE_TRUST
+    ] if _POOL_GATE else []
+    if retry:
+        stats.pool_gate_retries = len(retry)
+        _log.info(
+            "pool gate: %d/%d pooled rows untrusted; re-running full-rate",
+            len(retry), len(pooled_items),
+        )
+        results.update(
+            execute_planned_multi(
+                retry, rescore_k, max_batch_elements, repeat=repeat, force_full_rate=True,
+            )
+        )
 
     # combine lag-chunk sub-results: min exact score, first (lowest absolute
     # sample) lag on ties — identical semantics to one full-window argmin

@@ -23,6 +23,15 @@
 // each thread has six independent reads in flight (neighbouring threads
 // on neighbouring addresses), so the pattern is read once, not K times.  A
 // row's pattern longer than S * C chunks is walked in strides of S chunks.
+// The per-warp sums of the candidates live in shared memory, so K is
+// walked in slabs of at most k_slab candidates (ops/rescore.py
+// rescore_slab, 384), one launch of the partial kernel each, at the slab's
+// offset into the rows of lags and partials (their row stride k_stride is
+// K): shared memory is bounded by k_slab, not K, and any K launches (the
+// pooled search asks for 90 * P candidates a row).  Each candidate's terms
+// are summed in the same order in every slab, so the order depends on the
+// row, C and S alone, never on B or K; a launch of K <= k_slab is one
+// slab, the kernel as it was before slabs.
 // float32 terms (the _rn intrinsics keep nvcc from contracting them into
 // FMAs), float64 partial sums per (row, chunk, candidate) into a [B, S, K]
 // scratch, which a second kernel sums in a fixed order and rounds to
@@ -44,12 +53,13 @@ __device__ __forceinline__ double warp_sum(double value) {
   return value;
 }
 
-// partial sums of one (chunk, row) over every candidate of the row
+// partial sums of one (chunk, row) over the k_count candidates of one
+// slab; lags and the partials hold rows of k_stride candidates
 __global__ void __launch_bounds__(kThreads) rescore_partial_kernel(
     const float* __restrict__ patterns, const float* __restrict__ windows,
     const int* __restrict__ pat_lens, const int* __restrict__ lags,
     double* __restrict__ num_part, double* __restrict__ energy_part,
-    int n, int k_count, int chunk, int chunks) {
+    int n, int k_count, int k_stride, int chunk, int chunks) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   double* warp_num = reinterpret_cast<double*>(smem_raw);  // [k_count][kWarps]
   double* warp_energy = warp_num + (size_t)k_count * kWarps;
@@ -61,7 +71,7 @@ __global__ void __launch_bounds__(kThreads) rescore_partial_kernel(
   const int pat_len = min(max(pat_lens[b], 0), n);
   const float* pattern = patterns + (size_t)b * n;
   const float* window = windows + (size_t)b * n;
-  const int* row_lags = lags + (size_t)b * k_count;
+  const int* row_lags = lags + (size_t)b * k_stride;
 
   for (int i = threadIdx.x; i < k_count * kWarps; i += kThreads) {
     warp_num[i] = 0.0;
@@ -119,7 +129,7 @@ __global__ void __launch_bounds__(kThreads) rescore_partial_kernel(
       num += warp_num[k * kWarps + w];
       energy += warp_energy[k * kWarps + w];
     }
-    const size_t at = ((size_t)b * chunks + c) * k_count + k;
+    const size_t at = ((size_t)b * chunks + c) * k_stride + k;
     num_part[at] = num;
     energy_part[at] = energy;
   }
@@ -150,23 +160,38 @@ __global__ void __launch_bounds__(kThreads) rescore_finish_kernel(
   }
 }
 
+constexpr size_t kDefaultSmem = 48 * 1024;  // the default limit of dynamic shared memory
+// the most a partial block takes: a full slab (ops/rescore.py K_SLAB, 384)
+// and the longest pattern chunk (MAX_CHUNK, 4096).  The limit is always
+// set to this one value, so threads that launch at once never lower it
+// under each other.
+constexpr size_t kMaxSmem = 384 * kWarps * 2 * sizeof(double) + 4096 * sizeof(float);
+
 }  // namespace
 
 extern "C" int sushi_rescore(
     const float* patterns, const float* windows, const int* pat_lens, const int* lags,
     float* num, float* energy, double* num_part, double* energy_part, int batch, int n,
-    int k_count, int chunk, int chunks, void* stream_ptr) {
+    int k_count, int k_slab, int chunk, int chunks, void* stream_ptr) {
   if (batch <= 0 || k_count <= 0) return static_cast<int>(cudaGetLastError());
+  if (k_slab <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  if (k_slab > k_count) k_slab = k_count;
   cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-  const size_t smem = (size_t)k_count * kWarps * 2 * sizeof(double) + (size_t)chunk * sizeof(float);
+  // ops/rescore.py rescore_smem_bytes: one slab's per-warp sums + the pattern chunk
+  const size_t smem = (size_t)k_slab * kWarps * 2 * sizeof(double) + (size_t)chunk * sizeof(float);
+  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t status;
-  if (smem > 48 * 1024 &&  // above the default limit of dynamic shared memory
+  if (smem > kDefaultSmem &&
       (status = cudaFuncSetAttribute(rescore_partial_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                     static_cast<int>(smem))) != cudaSuccess)
+                                     static_cast<int>(kMaxSmem))) != cudaSuccess)
     return static_cast<int>(status);
-  rescore_partial_kernel<<<dim3(chunks, batch), kThreads, smem, stream>>>(
-      patterns, windows, pat_lens, lags, num_part, energy_part, n, k_count, chunk, chunks);
-  if ((status = cudaGetLastError()) != cudaSuccess) return static_cast<int>(status);
+  for (int k_begin = 0; k_begin < k_count; k_begin += k_slab) {  // ops/rescore.py rescore_slabs
+    const int slab = k_count - k_begin < k_slab ? k_count - k_begin : k_slab;
+    rescore_partial_kernel<<<dim3(chunks, batch), kThreads, smem, stream>>>(
+        patterns, windows, pat_lens, lags + k_begin, num_part + k_begin, energy_part + k_begin, n, slab,
+        k_count, chunk, chunks);
+    if ((status = cudaGetLastError()) != cudaSuccess) return static_cast<int>(status);
+  }
   const int warps = batch * k_count;
   rescore_finish_kernel<<<(warps * 32 + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
       num_part, energy_part, num, energy, batch, k_count, chunks);

@@ -34,10 +34,10 @@ from sushi_tpu_torch.media.stream import AudioStream
 
 _log = logging.getLogger("sushi_tpu")
 
-# Cumulative cold-path stage seconds (decode / cache read), summed across
-# streams and threads, so a measurement can say WHERE a cold sync's time
-# went.
-INGEST_STATS = {"decode_seconds": 0.0, "cache_read_seconds": 0.0}
+# Cumulative cold-path stage seconds (decode / device upload / cache read),
+# summed across streams and threads, so a measurement can say WHERE a cold
+# sync's time went.
+INGEST_STATS = {"decode_seconds": 0.0, "upload_seconds": 0.0, "cache_read_seconds": 0.0}
 # pair loads run on overlapped threads (and season ingest on a thread pool);
 # a bare ``dict[k] += v`` is a read-modify-write the GIL can split, silently
 # dropping one thread's stage time from the artifact
@@ -206,32 +206,71 @@ def store_alignment_seed(src_key: str, dst_key: str, delta0: int) -> None:
         _log.debug("alignment seed write failed: %s", error)
 
 
+# deferred cache writes (upload=True loads): one writer thread keeps the
+# ~34 MB np.save off the cold path's critical path.  The buffer is
+# immutable once prepared, so writing late is safe; a crash before the
+# write lands is just a cache miss next run.
+_WRITER: Optional[ThreadPoolExecutor] = None
+
+
+def _writer() -> ThreadPoolExecutor:
+    global _WRITER
+    if _WRITER is None:
+        _WRITER = ThreadPoolExecutor(max_workers=1, thread_name_prefix="stream-cache-write")
+    return _WRITER
+
+
+def flush_writes() -> None:
+    """Block until deferred cache writes land (tests; season teardown)."""
+    if _WRITER is not None:
+        _WRITER.submit(lambda: None).result()
+
+
 def load_stream(
     path: str,
     sample_rate: int = 12000,
     sample_type: str = "uint8",
     use_native: bool = True,
+    upload: bool = False,
+    device=None,
 ) -> AudioStream:
     """AudioStream via the disk memo; falls through to a real ingest.
 
-    The JAX package's ``upload=True`` hook (upload before the cache write)
-    is not copied: the port uploads when a ``DeviceMatcher`` is built.
+    ``upload=True`` pipelines the cold path: the prepared buffer goes to
+    ``device`` (CUDA when None; ``batcher.upload_stream``, memoized, so the
+    later DeviceMatcher's upload is a hit that takes the same tensors)
+    *immediately*, before the disk cache write, which is deferred to one
+    background writer thread.  A pair loaded on two threads then overlaps
+    one stream's upload with the other's decode.
     """
     directory = cache_dir()
     key = stream_key(path, sample_rate, sample_type) if directory else None
+    stream = None
     if directory and key:
         t0 = time.time()
         cached = _try_read(directory, key)
         _add_stat("cache_read_seconds", time.time() - t0)
         if cached is not None:
             _log.info("Loaded prepared stream for %s from cache", path)
-            return cached
-    t0 = time.time()
-    stream = AudioStream(path, sample_rate, sample_type, use_native=use_native)
-    _add_stat("decode_seconds", time.time() - t0)
-    stream.cache_key = key
-    if directory and key:
-        _write(directory, key, stream)
+            stream = cached
+    fresh = stream is None
+    if fresh:
+        t0 = time.time()
+        stream = AudioStream(path, sample_rate, sample_type, use_native=use_native)
+        _add_stat("decode_seconds", time.time() - t0)
+        stream.cache_key = key
+    if upload:
+        from sushi_tpu_torch import resolve_device
+        from sushi_tpu_torch.align.batcher import upload_stream
+
+        t0 = time.time()
+        upload_stream(stream, resolve_device(device))
+        _add_stat("upload_seconds", time.time() - t0)
+    if fresh and directory and key:
+        if upload:
+            _writer().submit(_write, directory, key, stream)
+        else:
+            _write(directory, key, stream)
     return stream
 
 
@@ -241,12 +280,14 @@ def load_pair(
     sample_rate: int = 12000,
     sample_type: str = "uint8",
     use_native: bool = True,
+    upload: bool = False,
+    device=None,
 ) -> Tuple[AudioStream, AudioStream]:
     """Load both streams concurrently (ctypes ingest releases the GIL)."""
     if src_path == dst_path:
-        stream = load_stream(src_path, sample_rate, sample_type, use_native)
+        stream = load_stream(src_path, sample_rate, sample_type, use_native, upload, device)
         return stream, stream
     with ThreadPoolExecutor(max_workers=2) as pool:
-        src_future = pool.submit(load_stream, src_path, sample_rate, sample_type, use_native)
-        dst_future = pool.submit(load_stream, dst_path, sample_rate, sample_type, use_native)
+        src_future = pool.submit(load_stream, src_path, sample_rate, sample_type, use_native, upload, device)
+        dst_future = pool.submit(load_stream, dst_path, sample_rate, sample_type, use_native, upload, device)
         return src_future.result(), dst_future.result()

@@ -37,8 +37,8 @@ _ptr, _int = ctypes.c_void_p, ctypes.c_int
 # cudaGetLastError() after its launches
 _SIGNATURES = {
     # patterns, windows, pat_lens, lags, num, energy, num_part, energy_part,
-    # batch, n, k_count, chunk, chunks, stream
-    "sushi_rescore": (_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _int, _ptr),
+    # batch, n, k_count, k_slab, chunk, chunks, stream
+    "sushi_rescore": (_ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _int, _int, _int, _int, _ptr),
     # corr, windows, pat_lens, lag_counts, pat_energy,
     # block_min, block_arg, first_tight, first_loose,
     # carry, count_carry, tile_min, batch, n, stream

@@ -16,7 +16,10 @@ memory and streams the row's K candidate window segments against it,
 float32 terms and float64 partial sums into a ``[B, S, K]`` scratch; a
 second launch sums the S partials in a fixed order.
 :func:`rescore_geometry` chooses C and S so that the grid fills the card;
-:func:`rescore_chunks` states which terms each block sums.  C and S group
+:func:`rescore_chunks` states which terms each block sums;
+:func:`rescore_slabs` the slabs of candidates, one launch of the partial
+kernel each, which bound its shared memory (:func:`rescore_smem_bytes`)
+whatever K is.  C and S group
 a row's partial sums, so a mesh member matching a slice of a chunk takes
 them from the whole chunk's rows (``chunk_rows``): each row then sums as
 it does when the chunk runs on one device.  The JAX
@@ -36,6 +39,14 @@ from sushi_tpu_torch.ops import build
 SMS = 132  # streaming multiprocessors of one H100 SXM
 CHUNK_QUANTUM = 1024  # 256 threads x 4 terms
 MAX_CHUNK = 4096  # 16 KB of pattern in shared memory per block
+# candidates one launch of the partial kernel takes (csrc/rescore.cu
+# k_slab): its blocks hold 8 warps x 2 sums x 8 bytes of each, 48 KB a
+# slab; a multiple of the kernel's groups of 6 candidates.  Three blocks of
+# a full slab fit one SM.
+K_SLAB = 384
+WARPS = 8  # csrc/rescore.cu kWarps
+SMEM_LIMIT = 232448  # dynamic shared memory one H100 block can take (227 KB)
+PLAIN_ELEMENTS = 1 << 22  # window samples the plain version gathers at a time
 
 
 def rescore_geometry(batch: int, pat_cap: int) -> Tuple[int, int]:
@@ -59,6 +70,25 @@ def rescore_chunks(pat_len: int, chunk: int, chunks: int):
     ]
 
 
+def rescore_slab(k_count: int) -> int:
+    """Candidates per slab for a launch with ``k_count`` candidates a row."""
+    return max(min(int(k_count), K_SLAB), 1)
+
+
+def rescore_slabs(k_count: int):
+    """The [begin, end) candidate slabs the kernel is launched on, in
+    order: :func:`rescore_slab` candidates each, the last one ragged.
+    Every candidate is in one slab, and its sums do not depend on which."""
+    slab = rescore_slab(k_count)
+    return [(begin, min(begin + slab, k_count)) for begin in range(0, k_count, slab)]
+
+
+def rescore_smem_bytes(k_count: int, chunk: int) -> int:
+    """Dynamic shared memory of one partial block: a full slab's per-warp
+    float64 num and energy sums, and the float32 pattern chunk."""
+    return rescore_slab(k_count) * WARPS * 2 * 8 + chunk * 4
+
+
 def rescore_candidates_plain(
     patterns: torch.Tensor,
     pat_lens: torch.Tensor,
@@ -69,24 +99,28 @@ def rescore_candidates_plain(
     """Plain PyTorch (num, energy) [B, K]: float32 terms, float64 sums,
     rounded to float32 — the float32 rounding of the exact sum, like the
     kernel.  ``pat_cap`` bounds every pat_len (defaults to n), so work is
-    O(pat_cap) per candidate; one candidate column at a time bounds the
-    gather to [B, pat_cap]."""
-    n = patterns.shape[1]
+    O(pat_cap) per candidate; runs of candidates bound the gather to about
+    ``PLAIN_ELEMENTS`` window samples at a time."""
+    batch, n = patterns.shape
     cap = n if pat_cap is None else min(int(pat_cap), n)
     windows_ext = torch.nn.functional.pad(windows, (0, cap))
-    pats = patterns[:, :cap]
+    pats = patterns[:, None, :cap]
     offsets = torch.arange(cap, device=patterns.device)
-    mask = offsets[None, :] < pat_lens.to(torch.int64)[:, None]
+    mask = (offsets[None, :] < pat_lens.to(torch.int64)[:, None])[:, None, :]
+    lags = candidate_lags.to(torch.int64)
+    run = max(PLAIN_ELEMENTS // max(batch * cap, 1), 1)
     nums, energies = [], []
-    for k in range(candidate_lags.shape[1]):
-        index = candidate_lags[:, k : k + 1].to(torch.int64) + offsets[None, :]
-        seg = torch.where(mask, torch.gather(windows_ext, 1, index), 0.0)
+    for k0 in range(0, lags.shape[1], run):
+        index = lags[:, k0 : k0 + run, None] + offsets[None, None, :]  # [B, run, cap]
+        seg = torch.gather(windows_ext, 1, index.reshape(batch, -1)).reshape(index.shape)
+        seg = torch.where(mask, seg, 0.0)
         diff = torch.where(mask, pats - seg, 0.0)
-        nums.append(torch.sum((diff * diff).to(torch.float64), dim=1))
-        energies.append(torch.sum((seg * seg).to(torch.float64), dim=1))
+        nums.append(torch.sum((diff * diff).to(torch.float64), dim=2))
+        energies.append(torch.sum((seg * seg).to(torch.float64), dim=2))
+    empty = torch.zeros(batch, 0, dtype=torch.float64, device=patterns.device)
     return (
-        torch.stack(nums, dim=1).to(torch.float32),
-        torch.stack(energies, dim=1).to(torch.float32),
+        torch.cat(nums or [empty], dim=1).to(torch.float32),
+        torch.cat(energies or [empty], dim=1).to(torch.float32),
     )
 
 
@@ -98,7 +132,7 @@ def rescore_candidates(
     pat_cap: Optional[int] = None,
     chunk_rows: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact (num, energy) [B, K] at K candidate lags per row.
+    """Exact (num, energy) [B, K] at K candidate lags per row, any K >= 1.
 
     CPU tensors take :func:`rescore_candidates_plain`; CUDA tensors launch
     the kernel (counted in ``rescore_candidates.launches``) or raise.
@@ -132,7 +166,8 @@ def rescore_candidates(
             patterns.data_ptr(), windows.data_ptr(), pat_lens.data_ptr(),
             candidate_lags.data_ptr(), num.data_ptr(), energy.data_ptr(),
             num_part.data_ptr(), energy_part.data_ptr(),
-            batch, n, k_count, chunk, chunks, torch.cuda.current_stream().cuda_stream,
+            batch, n, k_count, rescore_slab(k_count), chunk, chunks,
+            torch.cuda.current_stream().cuda_stream,
         )
     build.check(status, "rescore")
     build.count_launch(rescore_candidates)

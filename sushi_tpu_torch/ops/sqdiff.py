@@ -15,6 +15,9 @@ two-stage design:
 * **exact pass**: the coarse scores carry ~1e-6-relative FFT noise, so the
   top-K candidate lags are re-scored exactly and the minimum is picked
   with cv2's first-lag tie-break.
+* **pooled coarse-to-fine** (opt-in, ``coarse_pool=P``): the coarse pass
+  runs on P-fold mean-pooled rows, and full-rate neighbourhoods of the
+  pooled candidates are re-scored exactly (:func:`_match_pooled`).
 
 Everything here is the plain PyTorch formulation.  It is what the CPU
 runs, and the reference the two CUDA kernels (:mod:`.rescore`,
@@ -304,6 +307,9 @@ def match_padded_batch(
     rescore_k: int = 16,
     pat_cap: Optional[int] = None,
     chunk_rows: Optional[int] = None,
+    coarse_pool: Optional[int] = None,
+    pool_regions: int = 8,
+    pool_slack: int = 4,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Best (score, lag) per row of a padded batch, cv2-convention.
 
@@ -315,12 +321,24 @@ def match_padded_batch(
     Returns scores [B] float32 (clamped to 1.0 like cv2) and lags [B]
     int32 (first minimal lag; 0 when nothing scores below 1.0).
 
+    ``coarse_pool=P`` runs the coarse pass at P-fold mean-pooled
+    resolution (:func:`_match_pooled`): ``pool_regions`` pooled candidates
+    and the two plateau seeds each expand to a full-rate neighbourhood of
+    ``pool_slack`` pooled blocks on each side, so decisions still come
+    from exact full-rate scores.  Callers gate P on the pattern length
+    (``batcher._coarse_pool_for``).
+
     The coarse post-processing and the exact rescore go through their
     kernel wrappers: CUDA tensors launch the hand-written kernels, CPU
     tensors take the plain versions in the kernels' modules.
     """
     from sushi_tpu_torch.ops import coarse
 
+    if coarse_pool and coarse_pool > 1:
+        return _match_pooled(
+            patterns, pat_lens, windows, win_lens, coarse_pool, pool_regions, pool_slack,
+            pat_cap, chunk_rows,
+        )
     patterns = _pad_to(patterns, fft_size)
     windows = _pad_to(windows, fft_size)
     corr = correlate_rows(patterns, windows, fft_size)
@@ -331,6 +349,70 @@ def match_padded_batch(
     )
     candidates = select_candidates(block_min, block_arg, first_tight, first_loose, rescore_k)
     return exact_select(patterns, pat_lens, windows, win_lens, candidates, pat_cap, pat_energy, chunk_rows)
+
+
+def pool_rows(rows: torch.Tensor, pool: int) -> torch.Tensor:
+    """P-fold mean of consecutive samples, [B, n] -> [B, n / P] float32:
+    each group of P samples summed left to right, then divided by P.  An
+    order fixed by the row alone (a library mean would pick its order from
+    the tensor's shape), so a row pools alike in any batch."""
+    batch, n = rows.shape
+    groups = rows.reshape(batch, n // pool, pool)
+    total = groups[:, :, 0]
+    for j in range(1, pool):
+        total = total + groups[:, :, j]
+    return total / pool
+
+
+def _match_pooled(
+    patterns: torch.Tensor,
+    pat_lens: torch.Tensor,
+    windows: torch.Tensor,
+    win_lens: torch.Tensor,
+    pool: int,
+    regions: int,
+    slack: int,
+    pat_cap: Optional[int],
+    chunk_rows: Optional[int] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pooled coarse pass + full-rate exact refinement (port of
+    ``sushi_tpu.ops.sqdiff._match_pooled``).
+
+    The coarse SQDIFF runs on P-fold mean-pooled rows (FFT length n/P, n
+    the rows' width): a match's envelope survives mean pooling when the
+    pattern spans many pooled samples.  Mean pooling low-passes the SSD
+    landscape, so the pooled minimum can sit several pooled lags from the
+    full-rate one where the dip's basin is flat: each of the top
+    ``regions`` pooled candidates and the two plateau seeds expands to the
+    full-rate lags ``[p*P - slack*P, (p + slack + 1)*P)`` clipped to
+    ``[0, n - 1]``, and the exact rescore (``(regions + 2) * (2*slack + 1)
+    * P`` candidates a row) decides among them with cv2's first-lag
+    tie-break.  Where no neighbourhood holds the full-rate minimum (garbage
+    spans), the answer differs from the full-rate search; the batcher's
+    score gate re-runs such rows at full rate.
+    """
+    from sushi_tpu_torch.ops import coarse
+
+    batch, n = patterns.shape
+    pooled_n = n // pool
+    pat_p = pool_rows(patterns, pool)
+    win_p = pool_rows(windows, pool)
+    # floor'd pooled lengths keep pooled lag counts >= the covering count
+    # floor((win_len - pat_len) / P) + 1, so every valid full-rate lag
+    # falls inside some pooled candidate's neighbourhood
+    pat_lens_p = torch.clamp_min(pat_lens // pool, 1)
+    win_lens_p = torch.maximum(win_lens // pool, pat_lens_p)
+    # pooled pat_lens are floor'd, so the ceil'd pooled cap stays a bound
+    cap_p = min(-(-pat_cap // pool), pooled_n) if pat_cap else None
+    corr = correlate_rows(pat_p, win_p, pooled_n)
+    post = coarse.coarse_post(
+        corr, win_p, pat_lens_p, win_lens_p - pat_lens_p + 1, row_energy(pat_p, cap_p)
+    )
+    pooled = select_candidates(*post, regions).to(torch.int64)  # [B, regions + 2]
+    offsets = torch.arange((2 * slack + 1) * pool, device=patterns.device)
+    candidates = (pooled[:, :, None] * pool - slack * pool) + offsets[None, None, :]
+    candidates = torch.clamp(candidates, 0, n - 1).reshape(batch, -1).to(torch.int32)
+    return exact_select(patterns, pat_lens, windows, win_lens, candidates, pat_cap, chunk_rows=chunk_rows)
 
 
 def gather_rows(stream: torch.Tensor, starts: torch.Tensor, lengths: torch.Tensor, slice_len: int) -> torch.Tensor:
@@ -361,6 +443,9 @@ def match_from_streams_bounds(
     rescore_k: int = 16,
     pat_cap: Optional[int] = None,
     chunk_rows: Optional[int] = None,
+    coarse_pool: Optional[int] = None,
+    pool_regions: int = 8,
+    pool_slack: int = 4,
 ) -> torch.Tensor:
     """Gather (pattern, window) rows from device-resident streams and match.
 
@@ -369,15 +454,46 @@ def match_from_streams_bounds(
     result is ONE ``[2, B]`` float32 (row 0 scores, row 1 lags — exact in
     float32 since lags < 2^24), so a round's chunks join into one
     device->host copy.  Streams must be padded at the end by at least
-    ``slice_len``; ``chunk_rows`` as in :func:`match_padded_batch`.
+    ``slice_len``; ``chunk_rows`` and the pool arguments as in
+    :func:`match_padded_batch`.
     """
-    pat_lens, win_lens = bounds[1], bounds[3]
-    patterns = gather_rows(src, bounds[0], pat_lens, slice_len)
-    windows = gather_rows(dst, bounds[2], win_lens, slice_len)
-    scores, lags = match_padded_batch(
-        patterns, pat_lens, windows, win_lens, fft_size, rescore_k, pat_cap, chunk_rows
+    scores, lags = match_from_streams(
+        src, dst, bounds[0], bounds[1], bounds[2], bounds[3],
+        fft_size=fft_size, slice_len=slice_len, rescore_k=rescore_k, pat_cap=pat_cap,
+        chunk_rows=chunk_rows, coarse_pool=coarse_pool, pool_regions=pool_regions,
+        pool_slack=pool_slack,
     )
     return torch.stack([scores, lags.to(torch.float32)])
+
+
+def match_from_streams(
+    src: torch.Tensor,
+    dst: torch.Tensor,
+    pat_starts: torch.Tensor,
+    pat_lens: torch.Tensor,
+    win_starts: torch.Tensor,
+    win_lens: torch.Tensor,
+    *,
+    fft_size: int,
+    slice_len: int,
+    rescore_k: int = 16,
+    pat_cap: Optional[int] = None,
+    chunk_rows: Optional[int] = None,
+    coarse_pool: Optional[int] = None,
+    pool_regions: int = 8,
+    pool_slack: int = 4,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The unpacked entry: gather rows from float32 or uint8 resident
+    streams (starts and lengths [B] int32 on the streams' device) and
+    match them; returns scores [B] float32 and lags [B] int32, as
+    :func:`match_padded_batch`.  Streams must be padded at the end by at
+    least ``slice_len``."""
+    patterns = gather_rows(src, pat_starts, pat_lens, slice_len)
+    windows = gather_rows(dst, win_starts, win_lens, slice_len)
+    return match_padded_batch(
+        patterns, pat_lens, windows, win_lens, fft_size, rescore_k, pat_cap, chunk_rows,
+        coarse_pool, pool_regions, pool_slack,
+    )
 
 
 def pooled_alignment_peak(

@@ -2,11 +2,13 @@
 search → repair → snap → write.
 
 Port of :mod:`sushi_tpu.pipeline` (the port imports nothing of the JAX
-package).  Two differences: the analysis streams are loaded without the
-JAX upload hook and go to the device once, when ``calculate_shifts``
-builds its :class:`~sushi_tpu_torch.align.batcher.DeviceMatcher`, and the
-optional search trace is a ``torch.profiler`` trace.  The device is explicit:
-``run(args, device=None)`` runs on CUDA and fails without it.
+package).  As there, the cold ingest is pipelined: each analysis stream
+goes to the device from its ingest thread as soon as it is decoded (one
+stream's upload overlaps the other's decode), and the
+:class:`~sushi_tpu_torch.align.batcher.DeviceMatcher` that
+``calculate_shifts`` builds takes those tensors from the upload memo.  The
+optional search trace is a ``torch.profiler`` trace.  The device is
+explicit: ``run(args, device=None)`` runs on CUDA and fails without it.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from sushi_tpu_torch.text import chapters as chapters_mod
 from sushi_tpu_torch.text import keyframes as keyframes_mod
 from sushi_tpu_torch.text.subs import AssScript, SrtScript
 from sushi_tpu_torch import resolve_device
-from sushi_tpu_torch.align.batcher import calculate_shifts
+from sushi_tpu_torch.align.batcher import calculate_shifts, create_contexts
 
 _log = logging.getLogger("sushi_tpu")
 
@@ -287,9 +289,10 @@ def run(args, device=None) -> None:
             raise SushiError("script contains no events")
         script.sort_by_time()
 
-        # uploaded once, when calculate_shifts builds its DeviceMatcher
+        create_contexts(device)
         src_stream, dst_stream = load_pair(
             src_audio_path, dst_audio_path, sample_rate=args.sample_rate, sample_type=args.sample_type,
+            upload=True, device=device,  # pipeline decode with device upload (cold path)
         )
 
         search_groups = prepare_search_groups(

@@ -12,9 +12,10 @@ requests to the same bucketed kernel rounds
 sees a few large batches regardless of season size, with one device->host
 copy per round.
 
-Differences from the JAX package: streams load without the JAX upload hook
-and go to the device when the episode's
-:class:`~sushi_tpu_torch.align.batcher.DeviceMatcher` is built; the device is
+As there, ingest threads upload each stream as soon as it is decoded
+(``load_pair(upload=True)``), and the episode's
+:class:`~sushi_tpu_torch.align.batcher.DeviceMatcher` takes those tensors
+from the upload memo.  Differences from the JAX package: the device is
 explicit (``sync_season(jobs, device=None)`` runs on CUDA and fails
 without it, resolved once on the main thread and passed to the ingest
 threads); there is no compile cache to enable.  Ingest threads upload and
@@ -61,9 +62,9 @@ from sushi_tpu_torch import resolve_device
 from sushi_tpu_torch.align.batcher import (
     DeviceMatcher,
     SearchSession,
+    create_contexts,
     execute_planned_multi,
     groups_to_spans,
-    search_mesh,
 )
 from sushi_tpu_torch.pipeline import KeyframeData, format_full_path, postprocess_events
 
@@ -309,7 +310,9 @@ def _prepare_episode(
         kf_data = _job_keyframe_data(job)
     script = load_script(job.script)
     script.sort_by_time()
-    src_stream, dst_stream = load_pair(src_audio, dst_audio, sample_rate, sample_type)
+    src_stream, dst_stream = load_pair(
+        src_audio, dst_audio, sample_rate, sample_type, upload=True, device=device
+    )
     # chapters: explicit per-job file wins, else container chapters —
     # grouping must honor them like the single-episode pipeline
     # (typesetting merges are chapter-bounded and post-processing averages
@@ -444,11 +447,7 @@ def sync_season(
     if temp_dir and not os.path.exists(temp_dir):
         os.makedirs(temp_dir)
 
-    # create the CUDA context of every mesh member here, not lazily inside
-    # an ingest thread
-    mesh = search_mesh(device)
-    for member in mesh.devices if mesh is not None else [device]:
-        torch.empty(0, device=member)
+    create_contexts(device)
     started = time.time()
     all_demuxers: List[Demuxer] = []
     registry = _DemuxRegistry()

@@ -384,3 +384,55 @@ def test_cuda_rescore_pattern_longer_than_its_cap(cuda_device):
     want_num, want_energy = rescore.rescore_candidates_plain(*arrays)
     torch.testing.assert_close(num, want_num, rtol=1e-6, atol=0)
     torch.testing.assert_close(energy, want_energy, rtol=1e-6, atol=0)
+
+
+def _pooled_lags(rng, batch, n, k_count):
+    """[B, K] int32 candidate lags as the pooled search gives them: runs of
+    consecutive lags (neighbourhoods), clipped to [0, n - 1]."""
+    width = max(k_count // 10, 1)
+    bases = rng.randint(-width, n, (batch, -(-k_count // width)))
+    lags = bases[:, :, None] + np.arange(width)[None, None, :]
+    return np.clip(lags.reshape(batch, -1)[:, :k_count], 0, n - 1).astype(np.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k_count", [18, 360, 2880, 5760])
+def test_cuda_rescore_kernel_any_candidate_count(cuda_device, k_count):
+    """Candidate counts past one slab of shared memory (the pooled search's
+    90 * P), the last slab ragged, against the plain version."""
+    rng = np.random.RandomState(k_count)
+    patterns, pat_lens, windows, _ = _rescore_inputs(rng, 65536, 20000, batch=3, k=1)
+    lags = _pooled_lags(rng, 3, 65536, k_count)
+    arrays = [torch.from_numpy(a).to(cuda_device) for a in (patterns, pat_lens, windows, lags)]
+    before = rescore.rescore_candidates.launches
+    num, energy = rescore.rescore_candidates(*arrays, 24576)
+    torch.cuda.synchronize()
+    assert rescore.rescore_candidates.launches == before + 1 and num.shape == (3, k_count)
+    want_num, want_energy = rescore.rescore_candidates_plain(*arrays, 24576)
+    torch.testing.assert_close(num, want_num, rtol=1e-6, atol=0)
+    torch.testing.assert_close(energy, want_energy, rtol=1e-6, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [128, 512, 1024, 12288])
+def test_cuda_coarse_kernel_at_pooled_widths(cuda_device, n):
+    """The pooled search's coarse rows: n / P, down to one 128-lag block."""
+    rng = np.random.RandomState(n)
+    batch = 8
+    pats = np.zeros((batch, n), np.float32)
+    wins = np.zeros((batch, n), np.float32)
+    pat_lens = rng.randint(1, n // 2 + 1, batch).astype(np.int32)
+    win_lens = rng.randint(n // 2, n + 1, batch).astype(np.int32)
+    for b in range(batch):
+        wins[b, : win_lens[b]] = rng.randint(0, 256, win_lens[b]) / np.float32(255)
+        pats[b, : pat_lens[b]] = rng.randint(0, 256, pat_lens[b]) / np.float32(255)
+    corr = np.fft.irfft(np.fft.rfft(wins, n) * np.conj(np.fft.rfft(pats, n)), n).astype(np.float32)
+    arrays = [torch.from_numpy(a).to(cuda_device) for a in (
+        corr, wins, pat_lens, (win_lens - pat_lens + 1).astype(np.int32),
+        np.sum(pats * pats, axis=1, dtype=np.float32),
+    )]
+    got = coarse.coarse_post(*arrays)
+    want = coarse.coarse_post_plain(*arrays)
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=2e-6)
+    for got_part, want_part in zip(got[1:], want[1:]):
+        assert torch.equal(got_part, want_part)

@@ -82,12 +82,14 @@ def test_padded_batch_matches_jax(members):
         assert [batcher._padded_batch(b) for b in (1, 2, 9, 33, 65, 128)] == [1, 8, 32, 64, 128, 128]
 
 
-@pytest.mark.parametrize(
-    "fft_size,pat_cap,rescore_k",
-    [(4096, 4096, 16), (24576, 24576, 16), (49152, 12288, 16), (98304, 32768, 16),
-     (131072, 98304, 16), (262144, 24576, 16), (393216, 49152, 16), (786432, 65536, 16),
-     (1 << 20, 49152, 16), (3 << 21, 3 << 20, 16), (2048, 0, 8)],
-)
+FLOP_SHAPES = [
+    (4096, 4096, 16), (24576, 24576, 16), (49152, 12288, 16), (98304, 32768, 16),
+    (131072, 98304, 16), (262144, 24576, 16), (393216, 49152, 16), (786432, 65536, 16),
+    (1 << 20, 49152, 16), (3 << 21, 3 << 20, 16), (2048, 0, 8),
+]
+
+
+@pytest.mark.parametrize("fft_size,pat_cap,rescore_k", FLOP_SHAPES)
 def test_kernel_flop_model_matches_jax(fft_size, pat_cap, rescore_k):
     want = jax_batcher.kernel_flop_model(fft_size, pat_cap, rescore_k, coarse_pool=1)
     assert batcher.kernel_flop_model(fft_size, pat_cap, rescore_k) == want
@@ -95,6 +97,22 @@ def test_kernel_flop_model_matches_jax(fft_size, pat_cap, rescore_k):
     stats.record_chunk(fft_size, 3, 8, pat_cap, rescore_k, members=2)
     assert stats.kernel_gflop == 8 * want / 1e9
     assert stats.gathered_bytes == 8 * fft_size * 8 and stats.member_rows == [4, 4]
+
+
+@pytest.mark.parametrize("coarse_pool", [4, 8])
+@pytest.mark.parametrize("fft_size,pat_cap,rescore_k", FLOP_SHAPES)
+def test_pooled_kernel_flop_model_matches_jax(fft_size, pat_cap, rescore_k, coarse_pool):
+    """The pooled branch: coarse transforms at n / P, (regions + 2)
+    neighbourhoods of (2 * slack + 1) * P lags rescored."""
+    want = jax_batcher.kernel_flop_model(fft_size, pat_cap, rescore_k, coarse_pool)
+    assert batcher.kernel_flop_model(fft_size, pat_cap, rescore_k, coarse_pool) == want
+    assert want != jax_batcher.kernel_flop_model(fft_size, pat_cap, rescore_k)
+    for regions, slack in ((6, 3), (8, 4)):
+        assert batcher.kernel_flop_model(fft_size, pat_cap, rescore_k, coarse_pool, regions, slack) == \
+            jax_batcher.kernel_flop_model(fft_size, pat_cap, rescore_k, coarse_pool, regions, slack)
+    stats = batcher.RoundStats()
+    stats.record_chunk(fft_size, 3, 8, pat_cap, rescore_k, coarse_pool, members=2)
+    assert stats.kernel_gflop == 8 * want / 1e9 and stats.member_rows == [4, 4]
 
 
 def test_device_mesh_members_follow_jax_order():
@@ -286,6 +304,37 @@ def test_wide_window_chunks_split_over_production_mesh(monkeypatch, members):
     oracle_score, oracle_lag = oracle_match(src_host[1000 : 1000 + pat_len], dst_host[:50000])
     assert got["wide"][2] == oracle_lag == lag
     assert got["wide"][0] == pytest.approx(oracle_score, abs=1e-4)
+
+
+@pytest.mark.parametrize("members", [2, 3])
+def test_pooled_chunk_split_bit_identical(monkeypatch, members):
+    """A pooled chunk (P = 4, bucket 32768) split over 2 and 3 CPU members,
+    its score gate's full-rate mini-round too, gives one device's results
+    bit for bit."""
+    monkeypatch.setattr(batcher, "_COARSE_POOL_ENV", 4)
+    rng = np.random.RandomState(23)
+    # zero-mean noise: row 5, unplanted, scores ~1.0 and the gate re-runs it
+    dst_host = rng.randn(80000).astype(np.float32)
+    src_host = rng.randn(80000).astype(np.float32)
+    planned = []
+    for i in range(6):
+        pat_len, lag = 600 + 90 * i, 3000 + 1700 * i
+        if i < 5:
+            src_host[i * 9000 : i * 9000 + pat_len] = dst_host[i * 9000 + lag : i * 9000 + lag + pat_len]
+        planned.append(batcher.PlannedSearch(i, i * 9000, pat_len, i * 9000, 30000, 0.0, 12000))
+    assert batcher._coarse_pool_for(batcher._fft_bucket(30000), 600) == 4
+    src, dst = (torch.from_numpy(np.pad(a, (0, 1 << 15))) for a in (src_host, dst_host))
+    batcher.TELEMETRY.reset()
+    single = batcher.execute_planned(src, dst, planned)
+    assert batcher.TELEMETRY.summary()["pool_gate_retries"] >= 1
+    _install(monkeypatch, _cpu_mesh((members,)))
+    batcher.TELEMETRY.reset()
+    got = batcher.execute_planned(batcher._replicate_on_mesh(src), batcher._replicate_on_mesh(dst), planned)
+    summary = batcher.TELEMETRY.summary()
+    assert got == single
+    assert summary["rounds"] == 2 and len(summary["member_rows"]) == members and min(summary["member_rows"]) > 0
+    for i in range(5):
+        assert got[i][2] == i * 9000 + 3000 + 1700 * i
 
 
 @pytest.mark.parametrize(
