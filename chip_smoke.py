@@ -55,17 +55,25 @@ on the card, then checks it:
    row equal to the float64 oracle, one full-rate retry in a second round,
    and with the gate off one round and none; (d) times only: the pooled
    sync beside phase 3's, and one chunk at 128x262144 and 128x393216 full
-   rate vs P = 4 vs P = 8.
+   rate vs P = 4 vs P = 8;
+9. ``chip_soak.py`` and ``chip_regression.py`` in this process: 12 random
+   episodes (seed 0) whose batched shifts equal a sequential drive of the
+   kernels and the float64 oracle's (the score-tie waivers of
+   ``tools/soak.py``), 3 random seasons of 3 episodes byte-identical to
+   their single syncs, 2 pooled episodes (P = 4) that hold the first
+   contract, and the regression config (a 300 s episode through the CLI
+   four ways and a season of two, each line count exact).
 
 Phase 3's cold sync runs the pipelined ingest: each stream uploads from
 its ingest thread (``INGEST_STATS["upload_seconds"] > 0``), the sync's
 ``DeviceMatcher`` takes the upload memo's tensors (no second upload), and
 the deferred stream-cache files read back equal to the decoded buffers.
 
-Every kernel launch counter is set to 0 just before each of phases 3-8
+Every kernel launch counter is set to 0 just before each of phases 3-9
 drives its path and read just after; each phase fails if a kernel was not
 launched; the launches per phase are printed at the end.  Any failed
-check exits non-zero.  The last two lines of standard output are the
+check exits non-zero, and so does a run that imported JAX or any module
+of the JAX package.  The last two lines of standard output are the
 kernels' JSON record and the device JSON.
 Fixtures and the stream cache live under ``build/chip_smoke/``
 (git-ignored, recreated each run).  Imports nothing of JAX.
@@ -176,6 +184,13 @@ POOLED_CPU_CHUNKS = 4
 # tests/test_search.py's score-gate fixture: (key, pat_start, pat_len, win_start, win_len)
 GATE = dict(seed=21, src=300000, dst=400000, plant=50000,
             rows=(("hit", 0, 30000, 0, 200000), ("garbage", 40000, 30000, 100000, 200000)))
+# phase 9: chip_soak.py's runs at bench.py's in-bench sizes (bench.py's
+# run_soak, run_season_soak), and two pooled iterations
+SOAK_RUNS = (
+    ("single", dict(iterations=12, seed=0)),
+    ("season", dict(iterations=3, seed=0, season=True)),
+    ("pooled", dict(iterations=2, seed=0, pool=HEADLINE_POOL)),
+)
 
 
 class SmokeFailure(Exception):
@@ -461,6 +476,64 @@ def check_kernels(device):
 # phases 3 and 4: fixtures and episodes
 
 
+def media_fixtures():
+    """``tests/fixtures.py``, for its numpy-only audio helpers
+    (``synth_episode``, ``shift_audio``, ``write_wav_int16``).  tests/ is a
+    namespace package, which any installed regular package named "tests"
+    shadows: the module is imported as ``fixtures``, from tests/ itself.
+    Its script writers import the JAX package's time formatting: use
+    :func:`write_srt` and :func:`write_ass` instead."""
+    path = os.path.join(REPO, "tests")
+    if path not in sys.path:
+        sys.path.insert(0, path)
+    import fixtures
+
+    return fixtures
+
+
+def write_srt(path, events):
+    """An .srt of (start, end, text) events, byte for byte as
+    ``tests/fixtures.write_srt`` writes it, timed with the port's formatter."""
+    from sushi_tpu_torch.text.timefmt import format_srt_time
+
+    blocks = [
+        "{0}\n{1} --> {2}\n{3}".format(i + 1, format_srt_time(s), format_srt_time(e), text)
+        for i, (s, e, text) in enumerate(events)
+    ]
+    with open(path, "w", encoding="utf-8") as handle:
+        handle.write("\n\n".join(blocks))
+
+
+def write_ass(path, events, comments=None):
+    """An .ass of (start, end, text) events (the indices in ``comments`` as
+    Comment lines), byte for byte as ``tests/fixtures.write_ass`` writes it,
+    timed with the port's formatter."""
+    from sushi_tpu_torch.text.timefmt import format_ass_time
+
+    comments = set(comments or [])
+    lines = [
+        "[Script Info]",
+        "Title: fixture",
+        "ScriptType: v4.00+",
+        "",
+        "[Events]",
+        "Format: Layer, Start, End, Style, Name, MarginL, MarginR, MarginV, Effect, Text",
+    ]
+    for i, (s, e, text) in enumerate(events):
+        kind = "Comment" if i in comments else "Dialogue"
+        lines.append(
+            "{0}: 0,{1},{2},Default,,0,0,0,,{3}".format(kind, format_ass_time(s), format_ass_time(e), text)
+        )
+    with open(path, "w", encoding="utf-8") as handle:
+        handle.write("\n".join(lines))
+
+
+def reference_modules():
+    """The modules of JAX or of the JAX package that this process holds."""
+    return sorted(name for name in sys.modules
+                  if name.split(".")[0] in ("jax", "jaxlib", "sushi_tpu"))
+
+
 def synth_pair(directory, seconds, count, shift, seed, audio_seed, span, gap, gap_span,
                jump=0.0, corrupt=False):
     """A (src.wav, dst.wav, in.srt) episode with a known true shift — the
@@ -470,11 +543,7 @@ def synth_pair(directory, seconds, count, shift, seed, audio_seed, span, gap, ga
     replaces four events' destination audio with garbage."""
     import numpy as np
 
-    # tests/ is a namespace package, which any installed regular package
-    # named "tests" shadows: import the numpy-only fixtures module directly
-    sys.path.insert(0, os.path.join(REPO, "tests"))
-    from fixtures import shift_audio, synth_episode, write_srt, write_wav_int16
-
+    fixtures = media_fixtures()
     os.makedirs(directory, exist_ok=True)
     rng = np.random.RandomState(seed)
     events = []
@@ -486,8 +555,8 @@ def synth_pair(directory, seconds, count, shift, seed, audio_seed, span, gap, ga
     scale = (seconds - 10.0) / cursor
     events = [(s * scale, e * scale) for s, e in events]
 
-    audio = synth_episode(seconds, events, seed=audio_seed)
-    dst_audio = shift_audio(audio, shift)
+    audio = fixtures.synth_episode(seconds, events, seed=audio_seed)
+    dst_audio = fixtures.shift_audio(audio, shift)
     dst_audio = (dst_audio.astype(np.int32) + rng.randint(-150, 150, len(dst_audio))).astype(np.int16)
     if corrupt:
         lo = int((events[count // 4][0] + shift) * 48000)
@@ -498,8 +567,8 @@ def synth_pair(directory, seconds, count, shift, seed, audio_seed, span, gap, ga
         insert = rng.randint(-300, 300, int(jump * 48000)).astype(np.int16)
         dst_audio = np.concatenate([dst_audio[:cut], insert, dst_audio[cut:]])
     paths = [os.path.join(directory, name) for name in ("src.wav", "dst.wav", "in.srt")]
-    write_wav_int16(paths[0], audio)
-    write_wav_int16(paths[1], dst_audio)
+    fixtures.write_wav_int16(paths[0], audio)
+    fixtures.write_wav_int16(paths[1], dst_audio)
     write_srt(paths[2], [(s, e, "line %d" % i) for i, (s, e) in enumerate(events)])
     return paths
 
@@ -1260,6 +1329,42 @@ def pooled_chunk_times(streams, device):
 
 
 # ---------------------------------------------------------------------------
+# phase 9: the exactness soak and the regression harness
+
+
+def check_soak_and_regression(device, directory):
+    """Phase 9: ``chip_soak.soak`` for each run of ``SOAK_RUNS``, then
+    ``chip_regression``'s default fixtures and config, every CLI and season
+    run in this process on ``device``.  Fails on any failed iteration or
+    test.  Returns ({run: soak record}, regression seconds, regression
+    buckets, kernel launches of the whole phase)."""
+    import chip_regression
+    import chip_soak
+    from sushi_tpu_torch.align import batcher
+
+    os.makedirs(directory)
+    port_log = logging.getLogger("sushi_tpu")
+    level = port_log.level
+    port_log.setLevel(logging.ERROR)  # the port's warnings on the soak's broken segments
+    reset_launches()
+    try:
+        soaks = {name: chip_soak.soak(device=device, workdir=directory, **run) for name, run in SOAK_RUNS}
+        batcher.TELEMETRY.reset()
+        started = time.perf_counter()
+        config = chip_regression.make_fixtures(os.path.join(directory, "regression"))
+        failed = chip_regression.run_config(config, device=device)
+        regression_seconds = time.perf_counter() - started
+    finally:
+        port_log.setLevel(level)
+    launches = require_launched("soak and regression", launch_counts())
+    for name, record in soaks.items():
+        check(record["failures"] == 0, "soak %s: %d of %d iterations failed (their groups are logged above)"
+              % (name, record["failures"], record["iterations"]))
+    check(not failed, "regression: %s failed (logged above)" % ", ".join(failed))
+    return soaks, regression_seconds, batcher.TELEMETRY.summary()["buckets"], launches
+
+
+# ---------------------------------------------------------------------------
 
 
 def main():
@@ -1515,6 +1620,23 @@ def main():
         log("phase 8: one chunk at %s: full rate %.4f ms, P=4 %.4f ms, P=8 %.4f ms (recorded)"
             % (label, by_pool[None], by_pool[4], by_pool[8]))
     log("phase 8: %.1f s" % (time.perf_counter() - phase8_started))
+
+    # phase 9: the randomized exactness soak and the regression harness
+    phase9_started = time.perf_counter()
+    soaks, regression_seconds, regression_buckets, launches["phase 9"] = check_soak_and_regression(
+        device, os.path.join(WORK, "phase9"))
+    for name, record in soaks.items():
+        log("phase 9: soak %s (seed %d%s): %d iterations, %d failed%s, %.1f s; buckets %s  ok"
+            % (name, record["seed"], ", P = %d" % record["pool"] if record["pool"] else "", record["iterations"],
+               record["failures"], "" if "oracle_mismatches" not in record else
+               ", %d oracle mismatches%s" % (record["oracle_mismatches"], " (counted)" if record["pool"] else ""),
+               record["wall_seconds"], json.dumps(record["buckets"])))
+    log("phase 9: regression config (4 CLI tests, season-batch, wav-load-budget) passed with its exact line "
+        "error counts in %.1f s (fixtures included); buckets %s  ok" % (regression_seconds, json.dumps(regression_buckets)))
+    log("phase 9: kernel launches %s; %.1f s" % (launches["phase 9"], time.perf_counter() - phase9_started))
+
+    held = reference_modules()
+    check(not held, "this run imported JAX or the JAX package: %s" % held)
 
     kernels = []
     for name, source, replaces, extra in (
