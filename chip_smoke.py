@@ -62,14 +62,20 @@ on the card, then checks it:
    ``tools/soak.py``), 3 random seasons of 3 episodes byte-identical to
    their single syncs, 2 pooled episodes (P = 4) that hold the first
    contract, and the regression config (a 300 s episode through the CLI
-   four ways and a season of two, each line count exact).
+   four ways and a season of two, each line count exact);
+10. ``chip_bench.py``'s cells in this process (``BENCH_CELLS``), on the
+   fixtures of phases 3-5: the warm headline (3 syncs), the pathological
+   episode against the oracle, the 12-episode season (cold, one warm, each
+   output against its single sync), the headline search's rounds replayed
+   (repeat 3), the launch floor and the match at 128x393216; each cell's
+   JSON line printed, and the phase failed by any cell not ``correct``.
 
 Phase 3's cold sync runs the pipelined ingest: each stream uploads from
 its ingest thread (``INGEST_STATS["upload_seconds"] > 0``), the sync's
 ``DeviceMatcher`` takes the upload memo's tensors (no second upload), and
 the deferred stream-cache files read back equal to the decoded buffers.
 
-Every kernel launch counter is set to 0 just before each of phases 3-9
+Every kernel launch counter is set to 0 just before each of phases 3-10
 drives its path and read just after; each phase fails if a kernel was not
 launched; the launches per phase are printed at the end.  Any failed
 check exits non-zero, and so does a run that imported JAX or any module
@@ -153,7 +159,8 @@ HEADLINE = dict(seconds=24 * 60, count=350, shift=3.417, seed=2024, audio_seed=7
 PATHOLOGICAL = dict(seconds=180, count=36, shift=2.0, seed=99, audio_seed=100,
                     span=2.0, gap=0.6, gap_span=1.8, jump=15.0, corrupt=True)
 # bench.py's build_season_fixtures: 12 of its 8-min episodes, the jump at slot 5
-SEASON = dict(episodes=12, seconds=480.0, jump_slot=5, io_threads=8)
+# (its 24-episode season has a second at slot 17)
+SEASON = dict(episodes=12, seconds=480.0, jump_slots=(5,), io_threads=8)
 # phase 6: two 10-min streams at 12 kHz; per case (pattern start, pattern
 # length, window start, window length, planted lag), in samples
 WIDE = dict(
@@ -190,6 +197,16 @@ SOAK_RUNS = (
     ("single", dict(iterations=12, seed=0)),
     ("season", dict(iterations=3, seed=0, season=True)),
     ("pooled", dict(iterations=2, seed=0, pool=HEADLINE_POOL)),
+)
+# phase 10: chip_bench.py's cells at their smallest counts, on the fixtures
+# of phases 3-5
+BENCH_CELLS = (
+    ("headline_warm", dict(syncs=3)),
+    ("pathological", {}),
+    ("season_12", dict(warm=1)),
+    ("search_round", dict(repeat=3)),
+    ("launch_floor", {}),
+    ("kernel_shapes", dict(shapes=((393216, 128),))),
 )
 
 
@@ -573,6 +590,24 @@ def synth_pair(directory, seconds, count, shift, seed, audio_seed, span, gap, ga
     return paths
 
 
+def fixture_pair(directory, recipe):
+    """:func:`synth_pair`'s files for ``recipe`` (its keyword arguments) in
+    ``directory``, written unless the ``recipe.json`` written after them
+    names the same recipe.  Returns the three paths."""
+    manifest = os.path.join(directory, "recipe.json")
+    try:
+        with open(manifest, encoding="utf-8") as handle:
+            written = json.load(handle) == recipe
+    except (OSError, ValueError):
+        written = False
+    if written:
+        return [os.path.join(directory, name) for name in ("src.wav", "dst.wav", "in.srt")]
+    paths = synth_pair(directory, **recipe)
+    with open(manifest, "w", encoding="utf-8") as handle:
+        json.dump(recipe, handle)
+    return paths
+
+
 class _Recorder:
     """Wraps the pipeline's ingest and search calls to time them and keep
     the search's per-group results."""
@@ -707,21 +742,20 @@ def pathological_parity(paths, device):
 # phase 5: the season
 
 
-def season_fixtures(directory, episodes, seconds, jump_slot):
+def season_fixtures(directory, episodes, seconds, jump_slots):
     """bench.py's build_season_fixtures recipe: episode i has seed 1000 + i,
     true shift 0.8 + (i * 0.37 mod 3.8) s and 55 + (i * 7 mod 41) events
-    (scaled by ``seconds`` / 480 for shorter rehearsals); the episode at
-    ``jump_slot`` gets a +12 s noise insert.  Returns [(paths, shift)]."""
+    (scaled by ``seconds`` / 480 for shorter rehearsals); each episode at one
+    of ``jump_slots`` gets a +12 s noise insert.  An episode's files are
+    written unless its directory holds them (:func:`fixture_pair`), so a
+    longer season with the same slots adds only its later episodes.
+    Returns [(paths, shift)]."""
     fixtures = []
     for i in range(episodes):
-        shift = 0.8 + (i * 0.37) % 3.8
-        paths = synth_pair(
-            os.path.join(directory, "ep%02d" % i), seconds=seconds,
-            count=int(round((55 + (i * 7) % 41) * seconds / 480.0)), shift=shift,
-            seed=1000 + i, audio_seed=1001 + i, span=2.0, gap=0.6, gap_span=1.8,
-            jump=12.0 if i == jump_slot else 0.0,
-        )
-        fixtures.append((paths, shift))
+        recipe = dict(seconds=seconds, count=int(round((55 + (i * 7) % 41) * seconds / 480.0)),
+                      shift=0.8 + (i * 0.37) % 3.8, seed=1000 + i, audio_seed=1001 + i, span=2.0, gap=0.6,
+                      gap_span=1.8, jump=12.0 if i in jump_slots else 0.0)
+        fixtures.append((fixture_pair(os.path.join(directory, "ep%02d" % i), recipe), recipe["shift"]))
     return fixtures
 
 
@@ -772,7 +806,7 @@ def season_run(jobs_path, io_threads, device):
     return time.perf_counter() - started, recorder.rounds, TELEMETRY.summary()
 
 
-def check_season(device, directory, episodes, seconds, jump_slot, io_threads, min_merged=3):
+def check_season(device, directory, episodes, seconds, jump_slots, io_threads, min_merged=3):
     """The season cold then warm, each output against its episode's single
     sync through the CLI, the clean episodes' lines against the truth;
     returns the numbers to print, with the kernel launches of the two
@@ -780,7 +814,7 @@ def check_season(device, directory, episodes, seconds, jump_slot, io_threads, mi
     from sushi_tpu_torch.cli import parse_args_and_run
 
     started = time.perf_counter()
-    fixtures = season_fixtures(directory, episodes, seconds, jump_slot)
+    fixtures = season_fixtures(directory, episodes, seconds, jump_slots)
     stats = {"fixture_seconds": time.perf_counter() - started}
     jobs = [dict(src=src, dst=dst, script=script, output=os.path.join(os.path.dirname(src), "season.srt"))
             for (src, dst, script), _ in fixtures]
@@ -815,7 +849,7 @@ def check_season(device, directory, episodes, seconds, jump_slot, io_threads, mi
                                 "-o", single], device=device)
         with open(job["output"], "rb") as season_out, open(single, "rb") as single_out:
             check(season_out.read() == single_out.read(), "season: episode %d differs from its single sync" % i)
-        if i != jump_slot:
+        if i not in jump_slots:
             worst_line = max(worst_line, worst_line_error(
                 "season episode %d" % i, job["script"], job["output"], fixtures[i][1]))
     stats["single_seconds"] = time.perf_counter() - started
@@ -1332,12 +1366,15 @@ def pooled_chunk_times(streams, device):
 # phase 9: the exactness soak and the regression harness
 
 
-def check_soak_and_regression(device, directory):
-    """Phase 9: ``chip_soak.soak`` for each run of ``SOAK_RUNS``, then
+def check_soak_and_regression(device, directory, soak_runs=SOAK_RUNS):
+    """Phase 9: ``chip_soak.soak`` for each run of ``soak_runs``, then
     ``chip_regression``'s default fixtures and config, every CLI and season
     run in this process on ``device``.  Fails on any failed iteration or
-    test.  Returns ({run: soak record}, regression seconds, regression
-    buckets, kernel launches of the whole phase)."""
+    test, and on a card if a kernel was never launched.  Returns ({run:
+    soak record}, regression seconds, regression buckets, kernel launches
+    of the whole phase)."""
+    import torch
+
     import chip_regression
     import chip_soak
     from sushi_tpu_torch.align import batcher
@@ -1348,7 +1385,7 @@ def check_soak_and_regression(device, directory):
     port_log.setLevel(logging.ERROR)  # the port's warnings on the soak's broken segments
     reset_launches()
     try:
-        soaks = {name: chip_soak.soak(device=device, workdir=directory, **run) for name, run in SOAK_RUNS}
+        soaks = {name: chip_soak.soak(device=device, workdir=directory, **run) for name, run in soak_runs}
         batcher.TELEMETRY.reset()
         started = time.perf_counter()
         config = chip_regression.make_fixtures(os.path.join(directory, "regression"))
@@ -1356,7 +1393,9 @@ def check_soak_and_regression(device, directory):
         regression_seconds = time.perf_counter() - started
     finally:
         port_log.setLevel(level)
-    launches = require_launched("soak and regression", launch_counts())
+    launches = launch_counts()
+    if torch.device(device).type == "cuda":  # on the CPU the plain versions run, uncounted
+        require_launched("soak and regression", launches)
     for name, record in soaks.items():
         check(record["failures"] == 0, "soak %s: %d of %d iterations failed (their groups are logged above)"
               % (name, record["failures"], record["iterations"]))
@@ -1398,7 +1437,7 @@ def main():
 
     # phase 3: the headline episode through the CLI, cold then warm
     started = time.perf_counter()
-    headline = synth_pair(os.path.join(WORK, "headline"), **HEADLINE)
+    headline = fixture_pair(os.path.join(WORK, "headline"), HEADLINE)
     log("phase 3: fixture (24 min, 350 events) written in %.1f s" % (time.perf_counter() - started))
     out_path = os.path.join(WORK, "headline", "out.srt")
     launches = {}
@@ -1433,7 +1472,7 @@ def main():
     )
 
     # phase 4: the pathological pair vs the sequential float64 oracle
-    patho = synth_pair(os.path.join(WORK, "pathological"), **PATHOLOGICAL)
+    patho = fixture_pair(os.path.join(WORK, "pathological"), PATHOLOGICAL)
     reset_launches()
     results, mismatches, patho_summary, device_seconds, oracle_seconds = pathological_parity(patho, device)
     launches["phase 4"] = require_launched("pathological", launch_counts())
@@ -1465,7 +1504,8 @@ def main():
     log(
         "phase 5: fixtures written in %.1f s; %d single syncs in %.3f s, each byte-identical to the season's "
         "output; worst line error of the %d clean episodes %.4f s; kernel launches in the two season runs %s  ok"
-        % (season["fixture_seconds"], SEASON["episodes"], season["single_seconds"], SEASON["episodes"] - 1,
+        % (season["fixture_seconds"], SEASON["episodes"], season["single_seconds"],
+           SEASON["episodes"] - len(SEASON["jump_slots"]),
            season["worst_line"], launches["phase 5"])
     )
 
@@ -1634,6 +1674,21 @@ def main():
     log("phase 9: regression config (4 CLI tests, season-batch, wav-load-budget) passed with its exact line "
         "error counts in %.1f s (fixtures included); buckets %s  ok" % (regression_seconds, json.dumps(regression_buckets)))
     log("phase 9: kernel launches %s; %.1f s" % (launches["phase 9"], time.perf_counter() - phase9_started))
+
+    # phase 10: chip_bench.py's cells in this process, at their smallest counts
+    import chip_bench
+
+    phase10_started = time.perf_counter()
+    reset_launches()
+    cells = [chip_bench.run_cell(name, device, WORK, **sizes) for name, sizes in BENCH_CELLS]
+    launches["phase 10"] = require_launched("bench cells", launch_counts())
+    for cell in cells:
+        log(json.dumps(cell))
+    check(all(cell["correct"] for cell in cells),
+          "bench cells: %s" % "; ".join("%s: %s" % (cell["cell"], cell["error"]) for cell in cells
+                                         if not cell["correct"]))
+    log("phase 10: cells %s correct; kernel launches %s; %.1f s"
+        % (", ".join(name for name, _ in BENCH_CELLS), launches["phase 10"], time.perf_counter() - phase10_started))
 
     held = reference_modules()
     check(not held, "this run imported JAX or the JAX package: %s" % held)

@@ -75,8 +75,9 @@ def main(argv=None):
     season = chip_smoke.SEASON
     episodes = [os.path.join(FIXTURES, "season", "ep%02d" % i) for i in range(season["episodes"])]
     if not os.path.exists(os.path.join(episodes[-1], "in.srt")):  # each episode's last file
+        # a checkout whose season_fixtures takes one jump slot names it "jump_slot"
         chip_smoke.season_fixtures(os.path.join(FIXTURES, "season"), season["episodes"], season["seconds"],
-                                   season["jump_slot"])
+                                   season.get("jump_slots", season.get("jump_slot")))
     jobs = [dict(src=os.path.join(episode, "src.wav"), dst=os.path.join(episode, "dst.wav"),
                  script=os.path.join(episode, "in.srt"), output=os.path.join(run_dir, "ep%02d.srt" % i))
             for i, episode in enumerate(episodes)]

@@ -50,7 +50,7 @@ PORT_FILES = _port_files()
 
 def test_port_files_found():
     for script in ("chip_smoke.py", "chip_kernels.py", "chip_row_locality.py", "chip_warm.py", "chip_soak.py",
-                   "chip_regression.py"):
+                   "chip_regression.py", "chip_bench.py"):
         assert script in PORT_FILES
     for module in ("cli.py", "season.py", "errors.py", os.path.join("media", "stream_cache.py"),
                    os.path.join("align", "machine.py"), os.path.join("ops", "coarse.py")):
