@@ -1,0 +1,8 @@
+"""Seconds per episode in the round executor: ``TELEMETRY``'s dispatch and
+fetch seconds over the episodes of every pass."""
+
+
+def read(ctx):
+    if not ctx.get("episodes"):
+        return None
+    return (ctx["telemetry"]["dispatch_seconds"] + ctx["telemetry"]["fetch_seconds"]) / ctx["episodes"]
