@@ -29,6 +29,7 @@ coarse-to-fine search (``SUSHI_COARSE_POOL=<P>``) and its score gate
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import math
 import os
@@ -39,6 +40,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 from sushi_tpu_torch.align import machine
 from sushi_tpu_torch.align.machine import FULL, LEFT, RIGHT, GroupResult, GroupSpan, SearchRequest
@@ -131,13 +133,36 @@ class RoundStats:
 
 
 class Telemetry:
-    """Process-wide search-stage telemetry: which buckets a run hit."""
+    """Process-wide search-stage telemetry: which buckets a run hit, how
+    much of the speculative replay's work the exact final replay read, and,
+    while a profiler runs, the seconds of every :func:`span`."""
 
     def __init__(self) -> None:
         self.rounds: List[RoundStats] = []
+        # requests every SearchSession.replay returned, and the distinct ones
+        # whose memoised result a SearchSession.finalize read
+        self.replay_requests = 0
+        self.replay_used = 0
+        # {span name: [count, seconds]}
+        self.spans: Dict[str, List[float]] = {}
+        self._lock = threading.Lock()  # sessions and spans run on several threads
 
     def reset(self) -> None:
         self.rounds.clear()
+        with self._lock:
+            self.replay_requests = self.replay_used = 0
+            self.spans.clear()
+
+    def count_replay(self, requests: int = 0, used: int = 0) -> None:
+        with self._lock:
+            self.replay_requests += requests
+            self.replay_used += used
+
+    def add_span(self, name: str, seconds: float) -> None:
+        with self._lock:
+            tally = self.spans.setdefault(name, [0, 0.0])
+            tally[0] += 1
+            tally[1] += seconds
 
     def summary(self) -> Dict[str, object]:
         buckets: Dict[int, List[int]] = {}
@@ -151,6 +176,11 @@ class Telemetry:
             member_rows += [0] * (len(r.member_rows) - len(member_rows))
             for member, rows in enumerate(r.member_rows):
                 member_rows[member] += rows
+        with self._lock:
+            spans = {
+                name: {"count": count, "seconds": seconds}
+                for name, (count, seconds) in sorted(self.spans.items())
+            }
         return {
             "rounds": len(self.rounds),
             "requests": sum(r.requests for r in self.rounds),
@@ -161,10 +191,47 @@ class Telemetry:
             "gathered_gb": sum(r.gathered_bytes for r in self.rounds) / 1e9,
             "member_rows": member_rows,
             "buckets": {str(k): v for k, v in sorted(buckets.items())},
+            "replay_requests": self.replay_requests,
+            "replay_used": self.replay_used,
+            "spans": spans,
         }
 
 
 TELEMETRY = Telemetry()
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+class _Span:
+    """A profiled span: a range of the running ``torch.profiler`` trace,
+    whose seconds it also adds to :data:`TELEMETRY`."""
+
+    __slots__ = ("_name", "_range", "_started")
+
+    def __init__(self, name: str, args: Dict[str, object]):
+        self._name = name
+        # a function-scope range, not record_function's user scope: the
+        # profiler draws no copy of it around the kernels on the device's
+        # timeline, so a span never reads as device time
+        self._range = torch._C._profiler._RecordFunctionFast(name, (), args)
+
+    def __enter__(self) -> "_Span":
+        self._range.__enter__()
+        self._started = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        TELEMETRY.add_span(self._name, time.perf_counter() - self._started)
+        self._range.__exit__(*exc)
+
+
+def span(name: str, **args):
+    """The context of the program's span ``name`` (``sushi.*``), with
+    ``args`` (ints or strings) attached in the trace.  Without a running
+    profiler it is one shared no-op."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return _Span(name, args)
 
 
 def _clip(value: float, lo: float, hi: float) -> float:
@@ -588,20 +655,21 @@ class DeviceMatcher:
                     _DELTA0_MEMO[memo_key] = stored
                 return stored
 
-        seed_started = time.time()
-        with member_device(self._pair.device):
-            coarse = sqdiff.pooled_alignment_peak(
-                self._src_dev, self._dst_dev, self._src_len, self._dst_len
-            )
-        delta0 = coarse
-        refine = _probe_refine_plan(coarse, self._src_len, self._dst_len, self._dst.sample_rate)
-        if refine is not None:
-            result = execute_planned_multi(
-                [(self._pair, refine)], self._rescore_k, self._max_batch_elements
-            )
-            delta0 = result[refine.key][2] - refine.pat_start
-        with _MEMO_LOCK:  # season ingest threads seed concurrently
-            SEED_STATS["seed_seconds"] += time.time() - seed_started
+        with span("sushi.seed"):
+            seed_started = time.time()
+            with member_device(self._pair.device):
+                coarse = sqdiff.pooled_alignment_peak(
+                    self._src_dev, self._dst_dev, self._src_len, self._dst_len
+                )
+            delta0 = coarse
+            refine = _probe_refine_plan(coarse, self._src_len, self._dst_len, self._dst.sample_rate)
+            if refine is not None:
+                result = execute_planned_multi(
+                    [(self._pair, refine)], self._rescore_k, self._max_batch_elements
+                )
+                delta0 = result[refine.key][2] - refine.pat_start
+            with _MEMO_LOCK:  # season ingest threads seed concurrently
+                SEED_STATS["seed_seconds"] += time.time() - seed_started
 
         if memo_key is not None:
             with _MEMO_LOCK:
@@ -766,6 +834,18 @@ def execute_planned_multi(
     device time per round from it).  A pattern too long to lag-chunk
     (:func:`_match_alone`) stays full-rate.
     """
+    with span("sushi.round", requests=len(items)):
+        return _execute_round(items, rescore_k, max_batch_elements, repeat, force_full_rate)
+
+
+def _execute_round(
+    items: Sequence[Tuple[StreamPair, PlannedSearch]],
+    rescore_k: int,
+    max_batch_elements: int,
+    repeat: int,
+    force_full_rate: bool,
+) -> Dict[object, Tuple[float, float, int]]:
+    """The body of :func:`execute_planned_multi`, inside its round span."""
     stats = RoundStats(requests=len(items))
     TELEMETRY.rounds.append(stats)
     # the round's pairs share the first pair's mesh: a pair without a copy
@@ -780,92 +860,101 @@ def execute_planned_multi(
     # {key: (pair, item)} of rows whose chunk ran a pooled coarse pass: the
     # score gate's candidates for a full-rate re-run
     pooled_items: Dict[object, Tuple[StreamPair, PlannedSearch]] = {}
-    for pair, item in items:
-        fft_size = _fft_bucket(item.win_len)
-        if fft_size < item.win_len:
-            # oversized window: cut the lag range into chunks that each fit
-            # a normal device bucket, combined after the fetch
-            subs = plan_wide_chunks(item, _MAX_FFT)
-            if subs is not None:
-                _log.info(
-                    "wide window of %d samples lag-chunked into %d device searches",
-                    item.win_len, len(subs),
-                )
-                wide_parents[item.key] = (item, [sub.key for sub in subs])
-                for sub in subs:
-                    by_bucket.setdefault((pair, _fft_bucket(sub.win_len)), []).append(sub)
+    with span("sushi.round.bucket"):
+        for pair, item in items:
+            fft_size = _fft_bucket(item.win_len)
+            if fft_size < item.win_len:
+                # oversized window: cut the lag range into chunks that each fit
+                # a normal device bucket, combined after the fetch
+                subs = plan_wide_chunks(item, _MAX_FFT)
+                if subs is not None:
+                    _log.info(
+                        "wide window of %d samples lag-chunked into %d device searches",
+                        item.win_len, len(subs),
+                    )
+                    wide_parents[item.key] = (item, [sub.key for sub in subs])
+                    for sub in subs:
+                        by_bucket.setdefault((pair, _fft_bucket(sub.win_len)), []).append(sub)
+                    continue
+                # a pattern spanning minutes cannot even be chunked: it is
+                # matched alone, on the device, below
+                alone.append((pair, item))
                 continue
-            # a pattern spanning minutes cannot even be chunked: it is
-            # matched alone, on the device, below
-            alone.append((pair, item))
-            continue
-        by_bucket.setdefault((pair, fft_size), []).append(item)
+            by_bucket.setdefault((pair, fft_size), []).append(item)
 
-    dispatch_started = time.perf_counter()
     in_flight = []
-    for (pair, fft_size), bucket_items in sorted(by_bucket.items(), key=lambda entry: entry[0][1]):
-        max_b = max(1, min(max_batch_elements // fft_size, _BATCH_BUCKETS[-1]))
-        for chunk_start in range(0, len(bucket_items), max_b):
-            chunk = bucket_items[chunk_start : chunk_start + max_b]
-            b = len(chunk)
-            padded_b = _padded_batch(b, members)
-            rows = chunk + [chunk[0]] * (padded_b - b)
-            # bound on every pattern length for the exact rescore, bucketed
-            # like the FFT: its work is O(pat_cap) per candidate
-            pat_cap = min(_fft_bucket(max(r.pat_len for r in rows)), fft_size)
-            coarse_pool = (
-                None if force_full_rate
-                else _coarse_pool_for(fft_size, min(r.pat_len for r in chunk))
-            )
-            if coarse_pool:
-                pooled_items.update((r.key, (pair, r)) for r in chunk)
-            bounds = np.array(
-                [
-                    [r.pat_start for r in rows],
-                    [r.pat_len for r in rows],
-                    [r.win_start for r in rows],
-                    [r.win_len for r in rows],
-                ],
-                np.int32,
-            )
-            for _ in range(max(1, repeat)):
-                packed = _sharded_match_packed(
-                    mesh.devices if mesh is not None else [pair.device], pair, bounds,
-                    fft_size=fft_size, slice_len=fft_size, rescore_k=rescore_k, pat_cap=pat_cap,
-                    coarse_pool=coarse_pool,
+    with span("sushi.round.dispatch"):
+        dispatch_started = time.perf_counter()
+        for (pair, fft_size), bucket_items in sorted(by_bucket.items(), key=lambda entry: entry[0][1]):
+            max_b = max(1, min(max_batch_elements // fft_size, _BATCH_BUCKETS[-1]))
+            for chunk_start in range(0, len(bucket_items), max_b):
+                chunk = bucket_items[chunk_start : chunk_start + max_b]
+                b = len(chunk)
+                padded_b = _padded_batch(b, members)
+                rows = chunk + [chunk[0]] * (padded_b - b)
+                # bound on every pattern length for the exact rescore, bucketed
+                # like the FFT: its work is O(pat_cap) per candidate
+                pat_cap = min(_fft_bucket(max(r.pat_len for r in rows)), fft_size)
+                coarse_pool = (
+                    None if force_full_rate
+                    else _coarse_pool_for(fft_size, min(r.pat_len for r in chunk))
                 )
-            in_flight.append((chunk, padded_b, packed))
-            stats.record_chunk(fft_size, b, padded_b, pat_cap, rescore_k, coarse_pool or 1, members)
-    for pair, item in alone:
-        _log.warning(
-            "pattern of %d samples exceeds the lag-chunk FFT cap; matched alone "
-            "at FFT size %d", item.pat_len, _smooth_size(item.win_len),
-        )
-        packed = _match_alone(pair, item, rescore_k)
-        if mesh is not None:
-            packed = packed.to(mesh.devices[0])  # joins the round on the first member
-        in_flight.append(([item], 1, packed))
-        fft_size = _smooth_size(item.win_len)
-        stats.record_chunk(fft_size, 1, 1, min(_smooth_size(item.pat_len), fft_size), rescore_k)
+                if coarse_pool:
+                    pooled_items.update((r.key, (pair, r)) for r in chunk)
+                bounds = np.array(
+                    [
+                        [r.pat_start for r in rows],
+                        [r.pat_len for r in rows],
+                        [r.win_start for r in rows],
+                        [r.win_len for r in rows],
+                    ],
+                    np.int32,
+                )
+                for _ in range(max(1, repeat)):
+                    with span("sushi.round.chunk", fft=fft_size, rows=b, padded_rows=padded_b,
+                              pat_cap=pat_cap, pool=coarse_pool or 1):
+                        packed = _sharded_match_packed(
+                            mesh.devices if mesh is not None else [pair.device], pair, bounds,
+                            fft_size=fft_size, slice_len=fft_size, rescore_k=rescore_k, pat_cap=pat_cap,
+                            coarse_pool=coarse_pool,
+                        )
+                in_flight.append((chunk, padded_b, packed))
+                stats.record_chunk(fft_size, b, padded_b, pat_cap, rescore_k, coarse_pool or 1, members)
+        for pair, item in alone:
+            _log.warning(
+                "pattern of %d samples exceeds the lag-chunk FFT cap; matched alone "
+                "at FFT size %d", item.pat_len, _smooth_size(item.win_len),
+            )
+            fft_size = _smooth_size(item.win_len)
+            pat_cap = min(_smooth_size(item.pat_len), fft_size)
+            with span("sushi.round.chunk", fft=fft_size, rows=1, padded_rows=1, pat_cap=pat_cap, pool=1):
+                packed = _match_alone(pair, item, rescore_k)
+            if mesh is not None:
+                packed = packed.to(mesh.devices[0])  # joins the round on the first member
+            in_flight.append(([item], 1, packed))
+            stats.record_chunk(fft_size, 1, 1, pat_cap, rescore_k)
+        dispatch_seconds = time.perf_counter() - dispatch_started
 
     if in_flight:
-        stats.dispatch_seconds = time.perf_counter() - dispatch_started
-        fetch_started = time.perf_counter()
-        # ONE device->host copy for the whole round
-        combined = torch.cat([packed for _, _, packed in in_flight], dim=1).cpu().numpy()
-        all_scores = combined[0]
-        all_lags = combined[1].astype(np.int64)
-        stats.fetch_seconds = time.perf_counter() - fetch_started
+        stats.dispatch_seconds = dispatch_seconds
+        with span("sushi.round.fetch"):
+            fetch_started = time.perf_counter()
+            # ONE device->host copy for the whole round
+            combined = torch.cat([packed for _, _, packed in in_flight], dim=1).cpu().numpy()
+            all_scores = combined[0]
+            all_lags = combined[1].astype(np.int64)
+            stats.fetch_seconds = time.perf_counter() - fetch_started
 
-        cursor = 0
-        for chunk, padded_b, _ in in_flight:
-            for i, item in enumerate(chunk):
-                lag = int(all_lags[cursor + i])
-                found_time = item.start_time + lag / float(item.sample_rate)
-                results[item.key] = (
-                    float(all_scores[cursor + i]), float(found_time), item.win_start + lag
-                )
-            cursor += padded_b
+        with span("sushi.round.unpack"):
+            cursor = 0
+            for chunk, padded_b, _ in in_flight:
+                for i, item in enumerate(chunk):
+                    lag = int(all_lags[cursor + i])
+                    found_time = item.start_time + lag / float(item.sample_rate)
+                    results[item.key] = (
+                        float(all_scores[cursor + i]), float(found_time), item.win_start + lag
+                    )
+                cursor += padded_b
 
     # score gate: pooled rows without a trusted match re-run full-rate, in
     # one recursive mini-round whose stats append to TELEMETRY like any
@@ -1047,6 +1136,7 @@ class SearchSession:
         max_window: float,
         rewind_thresh: int,
         delta0: int = 0,
+        episode: Optional[int] = None,
     ):
         self.groups_events = groups_events
         self.spans = groups_to_spans(groups_events, src_stream)
@@ -1055,13 +1145,21 @@ class SearchSession:
         self._params = (normal_window, max_window, rewind_thresh)
         self._predictor = ReplayPredictor(self.spans, dst_stream, PatternTable(self.spans), delta0)
         self._memo: Dict[SearchRequest, Tuple[float, float, int]] = {}
+        # the arguments of this session's spans: its episode in a season
+        self._span_args = {} if episode is None else {"episode": episode}
 
     def _machine_pass(self, collect_misses: bool):
+        """(group results, requests missed) of one run of the state machine;
+        the exact final run (``collect_misses`` off) also counts the
+        distinct requests it read into ``TELEMETRY.replay_used``."""
         pending: Dict[SearchRequest, None] = {}
+        read: Optional[Dict[SearchRequest, None]] = None if collect_misses else {}
 
         def find(request: SearchRequest) -> Tuple[float, float]:
             hit = self._memo.get(request)
             if hit is not None:
+                if read is not None:
+                    read[request] = None
                 return hit[:2]
             if not collect_misses:
                 raise AssertionError("final replay hit an unmemoized request")
@@ -1076,32 +1174,38 @@ class SearchSession:
             *self._params,
             src_sample_rate=self._src_rate,
         )
+        if read is not None:
+            TELEMETRY.count_replay(used=len(read))
         return results, list(pending)
 
     def replay(self) -> List[SearchRequest]:
         """One speculative replay; returns the requests still needed."""
         if not self.spans:
             return []
-        self._predictor.refresh()
-        logging.disable(logging.CRITICAL)  # speculative replays must not spam logs
-        try:
-            _, pending = self._machine_pass(collect_misses=True)
-        finally:
-            logging.disable(logging.NOTSET)
+        with span("sushi.replay", **self._span_args):
+            self._predictor.refresh()
+            logging.disable(logging.CRITICAL)  # speculative replays must not spam logs
+            try:
+                _, pending = self._machine_pass(collect_misses=True)
+            finally:
+                logging.disable(logging.NOTSET)
+        TELEMETRY.count_replay(requests=len(pending))
         return pending
 
     def feed(self, results: Dict[SearchRequest, Tuple[float, float, int]]) -> None:
-        self._memo.update(results)
-        for request, (score, _, abs_sample) in results.items():
-            self._predictor.observe(request, abs_sample, score)
+        with span("sushi.feed", **self._span_args):
+            self._memo.update(results)
+            for request, (score, _, abs_sample) in results.items():
+                self._predictor.observe(request, abs_sample, score)
 
     def finalize(self) -> List[GroupResult]:
         """Exact final replay on real results only; writes event shifts."""
         if not self.spans:
             return []
-        results, pending = self._machine_pass(collect_misses=False)
-        assert not pending
-        machine.apply_group_results(self.groups_events, results)
+        with span("sushi.finalize", **self._span_args):
+            results, pending = self._machine_pass(collect_misses=False)
+            assert not pending
+            machine.apply_group_results(self.groups_events, results)
         return results
 
 

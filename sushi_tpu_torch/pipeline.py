@@ -7,8 +7,9 @@ goes to the device from its ingest thread as soon as it is decoded (one
 stream's upload overlaps the other's decode), and the
 :class:`~sushi_tpu_torch.align.batcher.DeviceMatcher` that
 ``calculate_shifts`` builds takes those tensors from the upload memo.  The
-optional search trace is a ``torch.profiler`` trace.  The device is
-explicit: ``run(args, device=None)`` runs on CUDA and fails without it.
+optional trace (``SUSHI_PROFILE_DIR``) is a ``torch.profiler`` trace of the
+whole sync, with a ``sushi.pipeline.*`` span around each phase.  The device
+is explicit: ``run(args, device=None)`` runs on CUDA and fails without it.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ from sushi_tpu_torch.text import chapters as chapters_mod
 from sushi_tpu_torch.text import keyframes as keyframes_mod
 from sushi_tpu_torch.text.subs import AssScript, SrtScript
 from sushi_tpu_torch import resolve_device
-from sushi_tpu_torch.align.batcher import calculate_shifts, create_contexts
+from sushi_tpu_torch.align.batcher import calculate_shifts, create_contexts, span
 
 _log = logging.getLogger("sushi_tpu")
 
@@ -141,8 +142,15 @@ def postprocess_events(
 
 
 def run(args, device=None) -> None:
-    """One episode synced end to end on ``device`` (CUDA when None)."""
+    """One episode synced end to end on ``device`` (CUDA when None), traced
+    whole when ``SUSHI_PROFILE_DIR`` is set (:func:`device_trace`)."""
     device = resolve_device(device)
+    with device_trace(device, "search_trace.json"):
+        _sync(args, device)
+
+
+def _sync(args, device) -> None:
+    """The body of :func:`run` on the resolved ``device``."""
     ignore_chapters = args.chapters_file is not None and args.chapters_file.lower() == "none"
 
     plot = _ShiftPlot(args.plot_path) if args.plot_path else None
@@ -266,45 +274,48 @@ def run(args, device=None) -> None:
     dst_demuxer.demux()
 
     try:
-        if args.src_keyframes:
-            src_timecodes = (
-                Timecodes.cfr(args.src_fps) if args.src_fps else Timecodes.from_file(src_timecodes_file)
-            )
-            src_keytimes = [
-                src_timecodes.get_frame_time(f) for f in keyframes_mod.parse_keyframes(src_keyframes_file)
-            ]
-            dst_timecodes = (
-                Timecodes.cfr(args.dst_fps) if args.dst_fps else Timecodes.from_file(dst_timecodes_file)
-            )
-            dst_keytimes = [
-                dst_timecodes.get_frame_time(f) for f in keyframes_mod.parse_keyframes(dst_keyframes_file)
-            ]
+        with span("sushi.pipeline.parse"):
+            if args.src_keyframes:
+                src_timecodes = (
+                    Timecodes.cfr(args.src_fps) if args.src_fps else Timecodes.from_file(src_timecodes_file)
+                )
+                src_keytimes = [
+                    src_timecodes.get_frame_time(f) for f in keyframes_mod.parse_keyframes(src_keyframes_file)
+                ]
+                dst_timecodes = (
+                    Timecodes.cfr(args.dst_fps) if args.dst_fps else Timecodes.from_file(dst_timecodes_file)
+                )
+                dst_keytimes = [
+                    dst_timecodes.get_frame_time(f) for f in keyframes_mod.parse_keyframes(dst_keyframes_file)
+                ]
 
-        script = (
-            AssScript.from_file(src_script_path)
-            if script_extension == ".ass"
-            else SrtScript.from_file(src_script_path)
-        )
-        if not script.events:
-            raise SushiError("script contains no events")
-        script.sort_by_time()
+            script = (
+                AssScript.from_file(src_script_path)
+                if script_extension == ".ass"
+                else SrtScript.from_file(src_script_path)
+            )
+            if not script.events:
+                raise SushiError("script contains no events")
+            script.sort_by_time()
 
         create_contexts(device)
-        src_stream, dst_stream = load_pair(
-            src_audio_path, dst_audio_path, sample_rate=args.sample_rate, sample_type=args.sample_type,
-            upload=True, device=device,  # pipeline decode with device upload (cold path)
-        )
+        with span("sushi.pipeline.streams"):
+            src_stream, dst_stream = load_pair(
+                src_audio_path, dst_audio_path, sample_rate=args.sample_rate, sample_type=args.sample_type,
+                upload=True, device=device,  # pipeline decode with device upload (cold path)
+            )
 
-        search_groups = prepare_search_groups(
-            script.events,
-            source_duration=src_stream.duration_seconds,
-            chapter_times=chapter_times,
-            max_ts_duration=args.max_ts_duration,
-            max_ts_distance=args.max_ts_distance,
-        )
+        with span("sushi.pipeline.groups"):
+            search_groups = prepare_search_groups(
+                script.events,
+                source_duration=src_stream.duration_seconds,
+                chapter_times=chapter_times,
+                max_ts_duration=args.max_ts_duration,
+                max_ts_distance=args.max_ts_distance,
+            )
 
         search_started = _time.time()
-        with _device_trace(device):
+        with span("sushi.pipeline.search"):
             calculate_shifts(
                 src_stream,
                 dst_stream,
@@ -325,23 +336,25 @@ def run(args, device=None) -> None:
         kf_data = None
         if args.src_keyframes:
             kf_data = KeyframeData(src_keytimes, dst_keytimes, src_timecodes, dst_timecodes)
-        postprocess_events(
-            events,
-            chapter_times=[] if ignore_chapters else chapter_times,
-            grouping=args.grouping,
-            smooth_radius=args.smooth_radius,
-            kf_data=kf_data,
-            max_ts_duration=args.max_ts_duration,
-            max_ts_distance=args.max_ts_distance,
-            max_kf_distance=args.max_kf_distance,
-            kf_mode=args.kf_mode,
-            plot=plot,
-        )
+        with span("sushi.pipeline.postprocess"):
+            postprocess_events(
+                events,
+                chapter_times=[] if ignore_chapters else chapter_times,
+                grouping=args.grouping,
+                smooth_radius=args.smooth_radius,
+                kf_data=kf_data,
+                max_ts_duration=args.max_ts_duration,
+                max_ts_distance=args.max_ts_distance,
+                max_kf_distance=args.max_kf_distance,
+                kf_mode=args.kf_mode,
+                plot=plot,
+            )
 
-        for event in events:
-            event.apply_shift()
+        with span("sushi.pipeline.write"):
+            for event in events:
+                event.apply_shift()
 
-        script.save_to_file(dst_script_path)
+            script.save_to_file(dst_script_path)
 
         if plot:
             plot.add(
@@ -361,10 +374,12 @@ def _fmt_time(seconds: float) -> str:
 
 
 @contextlib.contextmanager
-def _device_trace(device):
+def device_trace(device, filename: str):
     """Optional profiling: set SUSHI_PROFILE_DIR to write a
-    ``torch.profiler`` Chrome trace of the search stage
-    (``search_trace.json``, viewable in chrome://tracing or Perfetto)."""
+    ``torch.profiler`` Chrome trace of the block to ``filename`` there
+    (viewable in chrome://tracing or Perfetto), with the program's
+    ``sushi.*`` spans of every thread where this torch can profile all
+    threads, else of the calling thread."""
     profile_dir = os.environ.get("SUSHI_PROFILE_DIR")
     if not profile_dir:
         yield
@@ -374,9 +389,13 @@ def _device_trace(device):
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":
         activities.append(torch.profiler.ProfilerActivity.CUDA)
+    try:
+        config = torch._C._profiler._ExperimentalConfig(profile_all_threads=True)
+    except TypeError:  # a torch without the option
+        config = None
     os.makedirs(profile_dir, exist_ok=True)
-    path = os.path.join(profile_dir, "search_trace.json")
-    with torch.profiler.profile(activities=activities) as profiler:
+    path = os.path.join(profile_dir, filename)
+    with torch.profiler.profile(activities=activities, experimental_config=config) as profiler:
         yield
     _log.info("Writing device profile trace to %s", path)
     profiler.export_chrome_trace(path)

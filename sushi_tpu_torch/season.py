@@ -65,8 +65,9 @@ from sushi_tpu_torch.align.batcher import (
     create_contexts,
     execute_planned_multi,
     groups_to_spans,
+    span,
 )
-from sushi_tpu_torch.pipeline import KeyframeData, format_full_path, postprocess_events
+from sushi_tpu_torch.pipeline import KeyframeData, device_trace, format_full_path, postprocess_events
 
 _log = logging.getLogger("sushi_tpu")
 
@@ -293,62 +294,71 @@ def _prepare_episode(
     already-parsed ``KeyframeData`` (keyframe logs can be tens of MB; parse
     once).
     """
-    started = time.time()
-    demuxers = []
-    src_audio, src_demuxer = _resolve_audio(
-        job.src, job.src_audio_idx, sample_rate, temp_dir, registry
-    )
-    if src_demuxer is not None:
-        demuxers.append(src_demuxer)
-    dst_audio, dst_demuxer = _resolve_audio(
-        job.dst, job.dst_audio_idx, sample_rate, temp_dir, registry
-    )
-    if dst_demuxer is not None:
-        demuxers.append(dst_demuxer)
+    with span("sushi.ingest.episode", episode=index):
+        started = time.time()
+        demuxers = []
+        with span("sushi.ingest.audio", episode=index):
+            src_audio, src_demuxer = _resolve_audio(
+                job.src, job.src_audio_idx, sample_rate, temp_dir, registry
+            )
+            if src_demuxer is not None:
+                demuxers.append(src_demuxer)
+            dst_audio, dst_demuxer = _resolve_audio(
+                job.dst, job.dst_audio_idx, sample_rate, temp_dir, registry
+            )
+            if dst_demuxer is not None:
+                demuxers.append(dst_demuxer)
 
-    if kf_data is _UNSET:
-        kf_data = _job_keyframe_data(job)
-    script = load_script(job.script)
-    script.sort_by_time()
-    src_stream, dst_stream = load_pair(
-        src_audio, dst_audio, sample_rate, sample_type, upload=True, device=device
-    )
-    # chapters: explicit per-job file wins, else container chapters —
-    # grouping must honor them like the single-episode pipeline
-    # (typesetting merges are chapter-bounded and post-processing averages
-    # per chapter group, pipeline.py:119-132,227)
-    chapter_times = _job_chapter_times(job, src_demuxer) if grouping else []
-    groups = prepare_search_groups(
-        script.events,
-        source_duration=src_stream.duration_seconds,
-        chapter_times=chapter_times,
-        max_ts_duration=max_ts_duration,
-        max_ts_distance=max_ts_distance,
-    )
-    matcher = DeviceMatcher(
-        src_stream, dst_stream, groups_to_spans(groups, src_stream), device=device
-    )
-    session = SearchSession(
-        src_stream,
-        dst_stream,
-        groups,
-        window,
-        max_window,
-        rewind_thresh if grouping else 0,
-        delta0=matcher.global_alignment_estimate(),
-    )
-    return _Episode(
-        index=index,
-        job=job,
-        script=script,
-        groups=groups,
-        session=session,
-        matcher=matcher,
-        demuxers=demuxers,
-        prepared_seconds=time.time() - started,
-        chapter_times=chapter_times,
-        kf_data=kf_data,
-    )
+        with span("sushi.ingest.script", episode=index):
+            if kf_data is _UNSET:
+                kf_data = _job_keyframe_data(job)
+            script = load_script(job.script)
+            script.sort_by_time()
+        with span("sushi.ingest.streams", episode=index):
+            src_stream, dst_stream = load_pair(
+                src_audio, dst_audio, sample_rate, sample_type, upload=True, device=device
+            )
+        with span("sushi.ingest.groups", episode=index):
+            # chapters: explicit per-job file wins, else container chapters —
+            # grouping must honor them like the single-episode pipeline
+            # (typesetting merges are chapter-bounded and post-processing averages
+            # per chapter group, pipeline.py:119-132,227)
+            chapter_times = _job_chapter_times(job, src_demuxer) if grouping else []
+            groups = prepare_search_groups(
+                script.events,
+                source_duration=src_stream.duration_seconds,
+                chapter_times=chapter_times,
+                max_ts_duration=max_ts_duration,
+                max_ts_distance=max_ts_distance,
+            )
+        with span("sushi.ingest.matcher", episode=index):
+            matcher = DeviceMatcher(
+                src_stream, dst_stream, groups_to_spans(groups, src_stream), device=device
+            )
+        with span("sushi.ingest.seed", episode=index):
+            delta0 = matcher.global_alignment_estimate()
+        session = SearchSession(
+            src_stream,
+            dst_stream,
+            groups,
+            window,
+            max_window,
+            rewind_thresh if grouping else 0,
+            delta0=delta0,
+            episode=index,
+        )
+        return _Episode(
+            index=index,
+            job=job,
+            script=script,
+            groups=groups,
+            session=session,
+            matcher=matcher,
+            demuxers=demuxers,
+            prepared_seconds=time.time() - started,
+            chapter_times=chapter_times,
+            kf_data=kf_data,
+        )
 
 
 def _finish_episode(
@@ -364,22 +374,25 @@ def _finish_episode(
     (border repair, smoothing, group averaging, keyframe snapping) — the
     exact shared code path, so a season job with the same options writes
     byte-identical output to a single pipeline run."""
-    episode.session.finalize()
-    events = episode.script.events
-    postprocess_events(
-        events,
-        chapter_times=episode.chapter_times,
-        grouping=grouping,
-        smooth_radius=smooth_radius,
-        kf_data=episode.kf_data,
-        max_ts_duration=max_ts_duration,
-        max_ts_distance=max_ts_distance,
-        max_kf_distance=max_kf_distance,
-        kf_mode=kf_mode,
-    )
-    for event in events:
-        event.apply_shift()
-    episode.script.save_to_file(episode.job.output)
+    with span("sushi.season.finish", episode=episode.index):
+        episode.session.finalize()
+        events = episode.script.events
+        with span("sushi.postprocess", episode=episode.index):
+            postprocess_events(
+                events,
+                chapter_times=episode.chapter_times,
+                grouping=grouping,
+                smooth_radius=smooth_radius,
+                kf_data=episode.kf_data,
+                max_ts_duration=max_ts_duration,
+                max_ts_distance=max_ts_distance,
+                max_kf_distance=max_kf_distance,
+                kf_mode=kf_mode,
+            )
+        with span("sushi.write", episode=episode.index):
+            for event in events:
+                event.apply_shift()
+            episode.script.save_to_file(episode.job.output)
     _log.info("season: wrote %s", episode.job.output)
 
 
@@ -407,7 +420,9 @@ def sync_season(
 
     One bad episode (unreadable container, broken WAV, unwritable output,
     a failed device call on its ingest thread) is logged and skipped — the
-    rest of the season still syncs.
+    rest of the season still syncs.  With ``SUSHI_PROFILE_DIR`` set, the
+    season is traced to ``season_trace.json`` there
+    (:func:`~sushi_tpu_torch.pipeline.device_trace`).
     """
     device = resolve_device(device)
 
@@ -454,7 +469,10 @@ def sync_season(
     rounds = 0
     synced = 0
     failures: List[Tuple[SeasonJob, str]] = []
-    with ThreadPoolExecutor(max_workers=max(1, io_threads)) as pool:
+    with (
+        device_trace(device, "season_trace.json"),
+        ThreadPoolExecutor(max_workers=max(1, io_threads)) as pool,
+    ):
         pending = {
             pool.submit(
                 _prepare_episode,
@@ -481,9 +499,10 @@ def sync_season(
                 # harvest ready episodes; block only when the device would
                 # otherwise sit idle
                 if pending:
-                    done, still_pending = wait(
-                        pending, timeout=0 if active else None, return_when=FIRST_COMPLETED
-                    )
+                    with span("sushi.season.wait_ingest"):
+                        done, still_pending = wait(
+                            pending, timeout=0 if active else None, return_when=FIRST_COMPLETED
+                        )
                     for future in done:
                         job = pending[future]
                         try:
@@ -523,10 +542,11 @@ def sync_season(
                             failures.append((episode.job, str(error)))
                         active.remove(episode)
                         continue
-                    items.extend(
-                        (episode.matcher.pair, episode.matcher.plan((episode.index, request), request))
-                        for request in requests
-                    )
+                    with span("sushi.season.plan", episode=episode.index):
+                        items.extend(
+                            (episode.matcher.pair, episode.matcher.plan((episode.index, request), request))
+                            for request in requests
+                        )
                 if items:
                     rounds += 1
                     if rounds > max_rounds:
