@@ -142,6 +142,10 @@ KERNEL_SHAPES = (
 )
 # the shape whose times stand in the kernels' JSON line
 HEADLINE_SHAPE = "128x393216/49152"
+# the gather kernel's checks: every batch bucket at the FFT sizes of the
+# season's verified probes (2^18, 3 * 2^17); its line shows 128 x 3 * 2^17
+GATHER_SIZES = (1 << 18, 3 << 17)
+GATHER_HEADLINE_SHAPE = "128x393216"
 RESCORE_RTOL = 1e-6
 BLOCK_MIN_ATOL = 2e-6
 # the H100 SXM's device-memory rate (NVIDIA's data sheet): both kernels are
@@ -487,6 +491,83 @@ def check_kernels(device):
         "that kept P, Z and the scores in device memory would add %d bytes of [B, n+1] and [B, n] scratch)"
         % (batch, n, coarse_peak, batch * (n + 1) * 12 + batch * n * 4))
     return records, coarse_peak
+
+
+def gather_bounds(rng, batch, n, length):
+    """[4, batch] int32 bounds shaped like a chunk's (patterns of n/8 to n/2
+    samples, windows of n/2 to n), from random starts in a stream of
+    ``length`` samples; the first row's starts clamp below 0 and the
+    second's past ``length - n``."""
+    import numpy as np
+
+    starts = rng.randint(0, length - n, (2, batch))
+    starts[:, 0] = -37
+    if batch > 1:
+        starts[:, 1] = length - n // 3
+    return np.stack([starts[0], rng.randint(n // 8, n // 2 + 1, batch),
+                     starts[1], rng.randint(n // 2, n + 1, batch)]).astype(np.int32)
+
+
+def gather_bytes(bounds, n, itemsizes):
+    """Bytes the gather kernel must move for ``bounds``: the table read once,
+    each row's samples below its length read once from its stream (of
+    ``itemsizes`` (src, dst) bytes a sample), every row written once as
+    float32 and the lengths once as int32."""
+    batch = bounds.shape[1]
+    read = sum(int(bounds[row].clip(0, n).sum()) * size for row, size in ((1, itemsizes[0]), (3, itemsizes[1])))
+    return 8 * (6 + 4 * batch) + read + 2 * batch * (n * 4 + 4)
+
+
+def check_gather(device):
+    """The gather kernel vs its plain twin (``sqdiff.gather_rows``, by
+    ``gather.gather_chunk_plain``) at every batch bucket and each of
+    ``GATHER_SIZES``, from the streams of a 24-min episode: uint8 on both
+    sides, as the main path holds them, and float32 patterns at the largest
+    batch.  Rows bit-identical and lengths equal, else it fails.  Times the
+    kernel against the eager path's two ``gather_rows`` calls.  Returns the
+    record of the kernels' line."""
+    import numpy as np
+    import torch
+
+    from sushi_tpu_torch.align import batcher
+    from sushi_tpu_torch.ops import gather, sqdiff
+
+    rng = np.random.RandomState(77)
+    length = HEADLINE["seconds"] * SAMPLE_RATE + batcher._MAX_FFT
+    streams = {
+        "src": torch.from_numpy(rng.randint(0, 256, length).astype(np.uint8)).to(device),
+        "dst": torch.from_numpy(rng.randint(0, 256, length).astype(np.uint8)).to(device),
+        "float32": torch.from_numpy(rng.standard_normal(length).astype(np.float32)).to(device),
+    }
+    record = {"max_abs_err": 0.0, "times": {}, "bytes": {}}
+    for n in GATHER_SIZES:
+        for batch in batcher._BATCH_BUCKETS:
+            for src_name in ("src", "float32") if batch == batcher._BATCH_BUCKETS[-1] else ("src",):
+                src, dst = streams[src_name], streams["dst"]
+                bounds = gather_bounds(rng, batch, n, length)
+                table = np.zeros(gather.table_size(batch), np.int64)
+                gather.pack_table(table, src, dst, bounds, n)
+                table = torch.from_numpy(table).to(device)
+                got = gather.gather_chunk(table, batch, n)
+                want = gather.gather_chunk_plain(table, src, dst, n)
+                for part, got_part, want_part in zip(("patterns", "pat_lens", "windows", "win_lens"), got, want):
+                    check(torch.equal(got_part.view(torch.int32), want_part.view(torch.int32)),
+                          "gather %s differs from gather_rows at %dx%d (%s source)" % (part, batch, n, src_name))
+                on_device = torch.from_numpy(bounds).to(device)
+                ms = time_ms(lambda: gather.gather_chunk(table, batch, n))
+                plain_ms = time_ms(lambda: (sqdiff.gather_rows(src, on_device[0], on_device[1], n),
+                                            sqdiff.gather_rows(dst, on_device[2], on_device[3], n)))
+                nbytes = gather_bytes(bounds, n, (src.element_size(), dst.element_size()))
+                shape = "%dx%d" % (batch, n) + ("" if src_name == "src" else " float32 src")
+                record["times"][shape] = (ms, plain_ms)
+                record["bytes"][shape] = nbytes
+                log("phase 2: %-24s gather %.4f ms (plain %.4f), %d bytes, bound %.2f us at 3.35 TB/s: "
+                    "%.1f%% of bound; bit-identical to gather_rows  ok"
+                    % (shape, ms, plain_ms, nbytes, bound_ms(nbytes) * 1e3, 100.0 * bound_ms(nbytes) / ms))
+                del got, want
+    del streams
+    torch.cuda.empty_cache()
+    return record
 
 
 # ---------------------------------------------------------------------------
@@ -919,17 +1000,19 @@ def check_wide_windows(device, samples, cases):
 
 
 def reset_launches():
-    from sushi_tpu_torch.ops import coarse, rescore
+    from sushi_tpu_torch.ops import coarse, gather, rescore
 
     rescore.rescore_candidates.launches = 0
     coarse.coarse_post.launches = 0
+    gather.gather_chunk.launches = 0
 
 
 def launch_counts():
-    """Both kernels' launch counts since :func:`reset_launches`."""
-    from sushi_tpu_torch.ops import coarse, rescore
+    """The kernels' launch counts since :func:`reset_launches`."""
+    from sushi_tpu_torch.ops import coarse, gather, rescore
 
-    return {"rescore": rescore.rescore_candidates.launches, "coarse_post": coarse.coarse_post.launches}
+    return {"rescore": rescore.rescore_candidates.launches, "coarse_post": coarse.coarse_post.launches,
+            "gather": gather.gather_chunk.launches}
 
 
 def require_launched(what, counts):
@@ -1005,15 +1088,22 @@ class _ShapeRecorder:
     card: wraps ``sqdiff.exact_select``, through which every match reaches
     the rescore kernel just after the coarse kernel ran at the same (B, n)
     (at full rate).  With ``candidates`` each shape also names the
-    candidate count K."""
+    candidate count K.  A chunk graph's replay calls no Python of its
+    chain, so the context runs on chunk graphs of its own
+    (``batcher.CHUNK_GRAPHS``), each captured inside it: every shape the
+    context runs is recorded at its capture."""
 
     def __init__(self, candidates=False):
+        from sushi_tpu_torch.align import batcher, chunk_graphs
         from sushi_tpu_torch.ops import sqdiff
 
         self.shapes = set()
         self._candidates = candidates
         self._sqdiff = sqdiff
+        self._batcher = batcher
+        self._chunk_graphs = chunk_graphs
         self._original = sqdiff.exact_select
+        self._graphs = batcher.CHUNK_GRAPHS
 
     def __enter__(self):
         def recording(patterns, pat_lens, windows, win_lens, candidates, pat_cap, pat_energy=None,
@@ -1027,10 +1117,12 @@ class _ShapeRecorder:
                                   chunk_rows)
 
         self._sqdiff.exact_select = recording
+        self._batcher.CHUNK_GRAPHS = self._chunk_graphs.ChunkGraphs()
         return self
 
     def __exit__(self, *exc):
         self._sqdiff.exact_select = self._original
+        self._batcher.CHUNK_GRAPHS = self._graphs
 
 
 def check_mesh_headline(out_path, want_srt, results, want_results):
@@ -1221,45 +1313,52 @@ def _record(records, name, label, err, ms, plain_ms, nbytes):
 
 
 class _PooledRecorder:
-    """Wraps ``sqdiff.match_from_streams_bounds`` and ``sqdiff._match_pooled``:
-    keeps the (B, n / P) of every pooled coarse pass, and one pooled chunk
-    of each bucket (at most ``POOLED_CPU_CHUNKS`` buckets): the first with
-    ``POOLED_CPU_ROWS`` rows or more, else the first with the most rows;
-    the streams, its bounds, its arguments and its [2, B] result."""
+    """Wraps ``batcher._match_chunk`` (every chunk of a round, a graph's
+    replay or not) and ``sqdiff._match_pooled``: keeps the (B, n / P) of
+    every pooled coarse pass, and one pooled chunk of each bucket (at most
+    ``POOLED_CPU_CHUNKS`` buckets): the first with ``POOLED_CPU_ROWS`` rows
+    or more, else the first with the most rows; the streams, its bounds, its
+    arguments and its [2, B] result."""
 
     def __init__(self):
+        from sushi_tpu_torch.align import batcher
         from sushi_tpu_torch.ops import sqdiff
 
         self.coarse_shapes = set()
         self.chunks = {}
         self.streams = {}
+        self._batcher = batcher
         self._sqdiff = sqdiff
-        self._originals = (sqdiff.match_from_streams_bounds, sqdiff._match_pooled)
+        self._originals = (batcher._match_chunk, sqdiff._match_pooled)
 
     def __enter__(self):
+        import torch
+
         match, pooled = self._originals
 
-        def matching(src, dst, bounds, **kwargs):
-            result = match(src, dst, bounds, **kwargs)
+        def matching(members, pair, bounds, tables, **kwargs):
+            result = match(members, pair, bounds, tables, **kwargs)
             fft_size = kwargs["fft_size"]
             held = self.chunks.get(fft_size)
             if kwargs.get("coarse_pool") and (
                     held[1].shape[1] < min(bounds.shape[1], POOLED_CPU_ROWS) if held is not None
                     else len(self.chunks) < POOLED_CPU_CHUNKS):
+                src, dst = pair.src_dev, pair.dst_dev
                 self.streams.setdefault((id(src), id(dst)), (src, dst))
-                self.chunks[fft_size] = ((id(src), id(dst)), bounds.cpu(), dict(kwargs), result.cpu())
+                self.chunks[fft_size] = ((id(src), id(dst)), torch.from_numpy(bounds.copy()), dict(kwargs),
+                                         result.cpu())
             return result
 
         def pooling(patterns, *args, **kwargs):
             self.coarse_shapes.add((patterns.shape[0], patterns.shape[1] // args[3]))
             return pooled(patterns, *args, **kwargs)
 
-        self._sqdiff.match_from_streams_bounds = matching
+        self._batcher._match_chunk = matching
         self._sqdiff._match_pooled = pooling
         return self
 
     def __exit__(self, *exc):
-        self._sqdiff.match_from_streams_bounds, self._sqdiff._match_pooled = self._originals
+        self._batcher._match_chunk, self._sqdiff._match_pooled = self._originals
 
 
 def pooled_cpu_parity(recorder):
@@ -1434,6 +1533,7 @@ def main():
 
     # phase 2: each kernel vs its plain version at the main path's shapes
     records, coarse_peak = check_kernels(device)
+    records["gather"] = check_gather(device)
 
     # phase 3: the headline episode through the CLI, cold then warm
     started = time.perf_counter()
@@ -1694,13 +1794,16 @@ def main():
     check(not held, "this run imported JAX or the JAX package: %s" % held)
 
     kernels = []
-    for name, source, replaces, extra in (
-        ("rescore", "sushi_tpu_torch/csrc/rescore.cu", "sushi_tpu/ops/pallas_ssd.py:59", {}),
-        ("coarse_post", "sushi_tpu_torch/csrc/coarse_post.cu", "sushi_tpu/ops/pallas_coarse.py:98",
+    for name, source, replaces, shape, extra in (
+        ("rescore", "sushi_tpu_torch/csrc/rescore.cu", "sushi_tpu/ops/pallas_ssd.py:59", HEADLINE_SHAPE, {}),
+        ("coarse_post", "sushi_tpu_torch/csrc/coarse_post.cu", "sushi_tpu/ops/pallas_coarse.py:98", HEADLINE_SHAPE,
          {"also_replaces": "sushi_tpu/ops/pallas_coarse.py:199", "peak_bytes": coarse_peak}),
+        # no TPU kernel: the JAX package gathers with XLA's dynamic_slice
+        ("gather", "sushi_tpu_torch/csrc/gather.cu", None, GATHER_HEADLINE_SHAPE,
+         {"plain": "sushi_tpu_torch/ops/sqdiff.py gather_rows"}),
     ):
-        ms, plain_ms = records[name]["times"][HEADLINE_SHAPE]
-        nbytes = records[name]["bytes"][HEADLINE_SHAPE]
+        ms, plain_ms = records[name]["times"][shape]
+        nbytes = records[name]["bytes"][shape]
         by_phase = {phase: counts[name] for phase, counts in launches.items()}
         log("launches of %s per phase: %s" % (name, json.dumps(by_phase)))
         kernels.append(dict(
@@ -1708,10 +1811,10 @@ def main():
             launches=sum(by_phase.values()), launches_by_phase=by_phase,
             max_abs_err=records[name]["max_abs_err"],
             ms=ms, plain_ms=plain_ms, bytes=nbytes, bound_ms=bound_ms(nbytes), bound_by="bytes",
-            library_ms=None, shape=HEADLINE_SHAPE,
-            times_ms={shape: {"ms": k, "plain_ms": p, "bytes": records[name]["bytes"][shape],
-                              "bound_ms": bound_ms(records[name]["bytes"][shape])}
-                      for shape, (k, p) in records[name]["times"].items()},
+            library_ms=None, shape=shape,
+            times_ms={label: {"ms": k, "plain_ms": p, "bytes": records[name]["bytes"][label],
+                              "bound_ms": bound_ms(records[name]["bytes"][label])}
+                      for label, (k, p) in records[name]["times"].items()},
         ))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

@@ -18,11 +18,14 @@ The host classes below are copies of the JAX package's (the port imports
 nothing of that package).  The device part
 is ported: :func:`upload_stream`, :class:`DeviceMatcher` and
 :func:`execute_planned_multi`, which runs each round as bucketed
-``sqdiff.match_from_streams_bounds`` calls with one host->device copy of
-the ``[4, B]`` bounds per chunk and ONE device->host copy per round.  With
+matches and ONE device->host copy per round.  On the card a chunk's rows
+are gathered by a kernel from the chunk's table (``ops/gather.py``), the
+round's tables fed by one non-blocking host->device copy a device; on one
+CUDA device each chunk is the replay of a CUDA graph captured for its shape
+(:mod:`sushi_tpu_torch.align.chunk_graphs`).  With
 ``SUSHI_MESH=<n>`` cards (or a mesh a caller installs) every chunk's rows split
 over a ``('dp',)`` :class:`~sushi_tpu_torch.parallel.sharded_search.DeviceMesh`
-(:func:`production_mesh`, :func:`_sharded_match_packed`).  The opt-in pooled
+(:func:`production_mesh`, :func:`_match_chunk`).  The opt-in pooled
 coarse-to-fine search (``SUSHI_COARSE_POOL=<P>``) and its score gate
 (``SUSHI_POOL_GATE``) are read at import, as in the JAX package.
 """
@@ -42,13 +45,13 @@ import numpy as np
 import torch
 from torch.autograd import profiler as _autograd_profiler
 
-from sushi_tpu_torch.align import machine
+from sushi_tpu_torch.align import chunk_graphs, machine
 from sushi_tpu_torch.align.machine import FULL, LEFT, RIGHT, GroupResult, GroupSpan, SearchRequest
 from sushi_tpu_torch.errors import SushiError
 from sushi_tpu_torch.media import stream_cache
 from sushi_tpu_torch.media.stream import PADDING_SECONDS, AudioStream
 from sushi_tpu_torch import resolve_device
-from sushi_tpu_torch.ops import sqdiff
+from sushi_tpu_torch.ops import gather, sqdiff
 from sushi_tpu_torch.parallel.sharded_search import (
     DeviceMesh,
     chunk_wide_window,
@@ -143,6 +146,12 @@ class Telemetry:
         # whose memoised result a SearchSession.finalize read
         self.replay_requests = 0
         self.replay_used = 0
+        # chunks of every round by how they ran (align/chunk_graphs.py): a
+        # replay of their shape's CUDA graph, the capture of a new one, or
+        # eagerly (CPU, a mesh, the lone oversized search, past the cap)
+        self.chunk_graph_replays = 0
+        self.chunk_graph_captures = 0
+        self.chunk_eager = 0
         # {span name: [count, seconds]}
         self.spans: Dict[str, List[float]] = {}
         self._lock = threading.Lock()  # sessions and spans run on several threads
@@ -151,12 +160,24 @@ class Telemetry:
         self.rounds.clear()
         with self._lock:
             self.replay_requests = self.replay_used = 0
+            self.chunk_graph_replays = self.chunk_graph_captures = self.chunk_eager = 0
             self.spans.clear()
 
     def count_replay(self, requests: int = 0, used: int = 0) -> None:
         with self._lock:
             self.replay_requests += requests
             self.replay_used += used
+
+    def count_chunk(self, kind: str) -> None:
+        """One chunk that ran as ``kind`` (``chunk_graphs.REPLAY``,
+        ``CAPTURE`` or ``EAGER``)."""
+        with self._lock:
+            if kind == chunk_graphs.REPLAY:
+                self.chunk_graph_replays += 1
+            elif kind == chunk_graphs.CAPTURE:
+                self.chunk_graph_captures += 1
+            else:
+                self.chunk_eager += 1
 
     def add_span(self, name: str, seconds: float) -> None:
         with self._lock:
@@ -193,6 +214,9 @@ class Telemetry:
             "buckets": {str(k): v for k, v in sorted(buckets.items())},
             "replay_requests": self.replay_requests,
             "replay_used": self.replay_used,
+            "chunk_graph_replays": self.chunk_graph_replays,
+            "chunk_graph_captures": self.chunk_graph_captures,
+            "chunk_eager": self.chunk_eager,
             "spans": spans,
         }
 
@@ -365,7 +389,8 @@ def _sharded_match_packed(
     members: List[torch.device], pair: "StreamPair", bounds: np.ndarray, **kwargs
 ) -> torch.Tensor:
     """``match_from_streams_bounds`` with a chunk's rows split over
-    ``members`` (the mesh's, or just the pair's device).  The ``[4, B]``
+    ``members`` (the mesh's, or just the pair's device): the path of
+    chunks that do not gather on the card (CPU streams).  The ``[4, B]``
     bounds (a numpy array; B a multiple of the member count) are cut along
     B into equal member slices; each slice goes to its member with one
     host->device copy and is matched there against the member's copy of
@@ -378,6 +403,108 @@ def _sharded_match_packed(
         return (sqdiff.match_from_streams_bounds(*pair.on(member), member_bounds, chunk_rows=rows, **kwargs),)
 
     (packed,) = split_rows(members, rows, match, dim=1)
+    return packed
+
+
+CHUNK_GRAPHS = chunk_graphs.ChunkGraphs()
+
+
+@dataclass
+class _Chunk:
+    """One chunk of a round: ``items`` padded to ``bounds.shape[1]`` rows of
+    the ``[4, B]`` int32 bounds, and the arguments of its match."""
+
+    pair: "StreamPair"
+    items: List["PlannedSearch"]
+    bounds: np.ndarray
+    fft_size: int
+    pat_cap: int
+    coarse_pool: Optional[int]
+
+
+def _chunk_members(mesh: Optional[DeviceMesh], pair: "StreamPair") -> List[torch.device]:
+    """The devices a chunk of ``pair``'s rows splits over: the mesh's, or
+    the pair's own."""
+    return mesh.devices if mesh is not None else [pair.device]
+
+
+def _pack_tables(chunks: Sequence[_Chunk], pin_memory: bool) -> Tuple[torch.Tensor, List[slice]]:
+    """The tables (``ops/gather.py``) of ``chunks`` packed one after the
+    other into one int64 host tensor (pinned, from PyTorch's caching host
+    allocator, with ``pin_memory``), and the slice of each."""
+    spans, end = [], 0
+    for chunk in chunks:
+        spans.append(slice(end, end + gather.table_size(chunk.bounds.shape[1])))
+        end = spans[-1].stop
+    host = torch.empty(end, dtype=torch.int64, pin_memory=pin_memory)
+    packed = host.numpy()
+    for chunk, span in zip(chunks, spans):
+        gather.pack_table(packed[span], chunk.pair.src_dev, chunk.pair.dst_dev, chunk.bounds, chunk.fft_size)
+    return host, spans
+
+
+def _member_chunks(chunk: _Chunk, members: List[torch.device]) -> List[_Chunk]:
+    """``chunk`` cut along its rows into equal slices, one per member, each
+    against the member's copy of the streams (``chunk`` itself on one
+    member)."""
+    if len(members) == 1:
+        return [chunk]
+    width = chunk.bounds.shape[1] // len(members)
+    return [
+        _Chunk(StreamPair(*chunk.pair.on(member)), chunk.items, chunk.bounds[:, i * width : (i + 1) * width],
+               chunk.fft_size, chunk.pat_cap, chunk.coarse_pool)
+        for i, member in enumerate(members)
+    ]
+
+
+def _chunk_tables(chunks: Sequence[_Chunk], mesh: Optional[DeviceMesh]) -> List[Optional[List[torch.Tensor]]]:
+    """Each chunk's tables, one per member slice on the member's device,
+    where the chunk gathers on the card (:func:`chunk_graphs.gathers_on_card`),
+    else None.  A device's tables reach it in ONE non-blocking copy of
+    :func:`_pack_tables`'s pinned tensor, which waits for nothing."""
+    tables: List[Optional[List[torch.Tensor]]] = [None] * len(chunks)
+    by_device: Dict[torch.device, List[Tuple[List[torch.Tensor], _Chunk]]] = {}
+    for index, chunk in enumerate(chunks):
+        members = _chunk_members(mesh, chunk.pair)
+        if chunk_graphs.gathers_on_card(members, chunk.pair.src_dev, chunk.pair.dst_dev):
+            tables[index] = []
+            for part in _member_chunks(chunk, members):
+                by_device.setdefault(part.pair.device, []).append((tables[index], part))
+    for device, parts in by_device.items():
+        host, spans = _pack_tables([part for _, part in parts], pin_memory=True)
+        on_device = host.to(device, non_blocking=True)
+        for (chunk_tables, _), span in zip(parts, spans):
+            chunk_tables.append(on_device[span])
+    return tables
+
+
+def _match_chunk(
+    members: List[torch.device], pair: "StreamPair", bounds: np.ndarray, tables: Optional[List[torch.Tensor]],
+    **kwargs,
+) -> torch.Tensor:
+    """A chunk's ``[2, B]`` result.  With ``tables`` (one a member, from
+    :func:`_chunk_tables`), the card's gather kernel: on one member the
+    replay of its shape's CUDA graph (:data:`CHUNK_GRAPHS`), on a mesh each
+    member's slice eagerly, joined on the first member.  Otherwise
+    :func:`_sharded_match_packed` over ``members``.  ``kwargs`` are
+    ``match_from_streams_bounds``'s."""
+    if tables is None:
+        TELEMETRY.count_chunk(chunk_graphs.EAGER)
+        return _sharded_match_packed(members, pair, bounds, **kwargs)
+    rows = bounds.shape[1]
+    if len(members) == 1:
+        key = chunk_graphs.ChunkKey(pair.device, rows, **kwargs)
+        with member_device(pair.device):
+            packed, kind = CHUNK_GRAPHS.run(key, tables[0])
+        TELEMETRY.count_chunk(kind)
+        return packed
+    width = rows // len(members)
+
+    def match(member, part):
+        return (sqdiff.match_from_table(tables[part.start // width], width, chunk_rows=rows, **kwargs),)
+
+    (packed,) = split_rows(members, rows, match, dim=1)
+    TELEMETRY.count_chunk(chunk_graphs.EAGER)
     return packed
 
 
@@ -818,9 +945,12 @@ def execute_planned_multi(
 
     Each item names the :class:`StreamPair` it gathers from, so searches
     over different episodes can share a round.  Requests bucket by FFT
-    size and chunks pad to a few batch sizes; each chunk costs one
-    host->device copy of its ``[4, B]`` bounds (one per member slice on a
-    mesh, see :func:`_sharded_match_packed`), and the whole round ONE
+    size and chunks pad to a few batch sizes.  On the card the chunks'
+    inputs reach each device in one non-blocking copy for the whole round
+    (:func:`_chunk_tables`), and on one CUDA device each chunk is a replay
+    of its shape's CUDA graph (:func:`_match_chunk`); on the CPU each chunk
+    takes its ``[4, B]`` bounds in a copy of its own (one per member slice
+    on a mesh, see :func:`_sharded_match_packed`).  The whole round makes ONE
     device->host copy of the joined ``[2, sum B]`` results.  Results are
     keyed by each item's ``key``: (score, found time, absolute dst sample).
 
@@ -885,13 +1015,12 @@ def _execute_round(
     in_flight = []
     with span("sushi.round.dispatch"):
         dispatch_started = time.perf_counter()
+        chunks: List[_Chunk] = []
         for (pair, fft_size), bucket_items in sorted(by_bucket.items(), key=lambda entry: entry[0][1]):
             max_b = max(1, min(max_batch_elements // fft_size, _BATCH_BUCKETS[-1]))
             for chunk_start in range(0, len(bucket_items), max_b):
                 chunk = bucket_items[chunk_start : chunk_start + max_b]
-                b = len(chunk)
-                padded_b = _padded_batch(b, members)
-                rows = chunk + [chunk[0]] * (padded_b - b)
+                rows = chunk + [chunk[0]] * (_padded_batch(len(chunk), members) - len(chunk))
                 # bound on every pattern length for the exact rescore, bucketed
                 # like the FFT: its work is O(pat_cap) per candidate
                 pat_cap = min(_fft_bucket(max(r.pat_len for r in rows)), fft_size)
@@ -910,16 +1039,21 @@ def _execute_round(
                     ],
                     np.int32,
                 )
-                for _ in range(max(1, repeat)):
-                    with span("sushi.round.chunk", fft=fft_size, rows=b, padded_rows=padded_b,
-                              pat_cap=pat_cap, pool=coarse_pool or 1):
-                        packed = _sharded_match_packed(
-                            mesh.devices if mesh is not None else [pair.device], pair, bounds,
-                            fft_size=fft_size, slice_len=fft_size, rescore_k=rescore_k, pat_cap=pat_cap,
-                            coarse_pool=coarse_pool,
-                        )
-                in_flight.append((chunk, padded_b, packed))
-                stats.record_chunk(fft_size, b, padded_b, pat_cap, rescore_k, coarse_pool or 1, members)
+                chunks.append(_Chunk(pair, chunk, bounds, fft_size, pat_cap, coarse_pool))
+
+        for chunk, tables in zip(chunks, _chunk_tables(chunks, mesh)):
+            b, padded_b = len(chunk.items), chunk.bounds.shape[1]
+            for _ in range(max(1, repeat)):
+                with span("sushi.round.chunk", fft=chunk.fft_size, rows=b, padded_rows=padded_b,
+                          pat_cap=chunk.pat_cap, pool=chunk.coarse_pool or 1):
+                    packed = _match_chunk(
+                        _chunk_members(mesh, chunk.pair), chunk.pair, chunk.bounds, tables,
+                        fft_size=chunk.fft_size, slice_len=chunk.fft_size, rescore_k=rescore_k,
+                        pat_cap=chunk.pat_cap, coarse_pool=chunk.coarse_pool,
+                    )
+            in_flight.append((chunk.items, padded_b, packed))
+            stats.record_chunk(chunk.fft_size, b, padded_b, chunk.pat_cap, rescore_k, chunk.coarse_pool or 1,
+                               members)
         for pair, item in alone:
             _log.warning(
                 "pattern of %d samples exceeds the lag-chunk FFT cap; matched alone "
@@ -929,6 +1063,7 @@ def _execute_round(
             pat_cap = min(_smooth_size(item.pat_len), fft_size)
             with span("sushi.round.chunk", fft=fft_size, rows=1, padded_rows=1, pat_cap=pat_cap, pool=1):
                 packed = _match_alone(pair, item, rescore_k)
+            TELEMETRY.count_chunk(chunk_graphs.EAGER)
             if mesh is not None:
                 packed = packed.to(mesh.devices[0])  # joins the round on the first member
             in_flight.append(([item], 1, packed))

@@ -12,6 +12,7 @@ there is no fallback.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -47,6 +48,8 @@ _SIGNATURES = {
         _ptr, _ptr, _ptr, _ptr,
         _ptr, _ptr, _ptr, _int, _int, _ptr,
     ),
+    # table, patterns, windows, pat_lens, win_lens, batch, slice_len, stream
+    "sushi_gather": (_ptr, _ptr, _ptr, _ptr, _ptr, _int, _int, _ptr),
 }
 
 _lock = threading.Lock()
@@ -54,6 +57,8 @@ _library: Optional[ctypes.CDLL] = None
 # the wrappers' ``.launches`` counts: season ingest threads launch kernels
 # beside the main thread, and ``+=`` on an attribute is not atomic
 _launch_lock = threading.Lock()
+# {wrapper: launches} of the thread's running :func:`record_launches`
+_recording = threading.local()
 
 
 def _nvcc() -> str:
@@ -145,10 +150,28 @@ def check_tensors(what: str, device, specs) -> None:
             raise ValueError("%s: %s must be contiguous" % (what, name))
 
 
-def count_launch(wrapper) -> None:
-    """Add one to ``wrapper.launches`` (a kernel wrapper's launch count)."""
+def count_launch(wrapper, count: int = 1) -> None:
+    """Add ``count`` to ``wrapper.launches`` (a kernel wrapper's launch
+    count), or to the calling thread's :func:`record_launches` tally."""
+    tally = getattr(_recording, "tally", None)
+    if tally is not None:
+        tally[wrapper] = tally.get(wrapper, 0) + count
+        return
     with _launch_lock:
-        wrapper.launches += 1
+        wrapper.launches += count
+
+
+@contextlib.contextmanager
+def record_launches():
+    """Within the context, the calling thread's launches go to the yielded
+    {wrapper: count} instead of the wrappers' counts: a CUDA graph's
+    capture records its launches, and each replay counts them
+    (``align/chunk_graphs.py``)."""
+    _recording.tally = tally = {}
+    try:
+        yield tally
+    finally:
+        _recording.tally = None
 
 
 def check(status: int, what: str) -> None:

@@ -466,6 +466,35 @@ def match_from_streams_bounds(
     return torch.stack([scores, lags.to(torch.float32)])
 
 
+def match_from_table(
+    table: torch.Tensor,
+    batch: int,
+    *,
+    fft_size: int,
+    slice_len: int,
+    rescore_k: int = 16,
+    pat_cap: Optional[int] = None,
+    chunk_rows: Optional[int] = None,
+    coarse_pool: Optional[int] = None,
+) -> torch.Tensor:
+    """:func:`match_from_streams_bounds` of the ``batch`` rows a chunk table
+    names (``ops/gather.py``: the streams' addresses, lengths and dtypes,
+    then the ``[4, B]`` bounds), on the table's CUDA device: the gather
+    kernel, then :func:`match_padded_batch`.  Nothing of the streams is an
+    argument, so the whole call can be captured as one CUDA graph and
+    replayed for other streams (``align/chunk_graphs.py``); a mesh member
+    runs it eagerly on its slice of a chunk of ``chunk_rows`` rows.
+    Returns the ``[2, B]`` float32 (scores, lags); the rows equal
+    :func:`match_from_streams_bounds`'s bit for bit."""
+    from sushi_tpu_torch.ops import gather
+
+    patterns, pat_lens, windows, win_lens = gather.gather_chunk(table, batch, slice_len)
+    scores, lags = match_padded_batch(
+        patterns, pat_lens, windows, win_lens, fft_size, rescore_k, pat_cap, chunk_rows, coarse_pool=coarse_pool,
+    )
+    return torch.stack([scores, lags.to(torch.float32)])
+
+
 def match_from_streams(
     src: torch.Tensor,
     dst: torch.Tensor,
