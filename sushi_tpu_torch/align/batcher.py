@@ -135,10 +135,15 @@ class RoundStats:
             self.member_rows[member] += padded_rows // members
 
 
+MEMO_KINDS = ("stream", "upload", "seed")
+MEMO_LEVELS = ("process", "disk", "miss")
+
+
 class Telemetry:
     """Process-wide search-stage telemetry: which buckets a run hit, how
-    much of the speculative replay's work the exact final replay read, and,
-    while a profiler runs, the seconds of every :func:`span`."""
+    much of the speculative replay's work the exact final replay read, at
+    which level each ingest memo answered, and, while a profiler runs, the
+    seconds of every :func:`span`."""
 
     def __init__(self) -> None:
         self.rounds: List[RoundStats] = []
@@ -154,7 +159,13 @@ class Telemetry:
         self.chunk_eager = 0
         # {span name: [count, seconds]}
         self.spans: Dict[str, List[float]] = {}
+        # {kind: {level: lookups}} of the ingest memos (see count_memo)
+        self.memo = self._no_memo()
         self._lock = threading.Lock()  # sessions and spans run on several threads
+
+    @staticmethod
+    def _no_memo() -> Dict[str, Dict[str, int]]:
+        return {kind: dict.fromkeys(MEMO_LEVELS, 0) for kind in MEMO_KINDS}
 
     def reset(self) -> None:
         self.rounds.clear()
@@ -162,6 +173,7 @@ class Telemetry:
             self.replay_requests = self.replay_used = 0
             self.chunk_graph_replays = self.chunk_graph_captures = self.chunk_eager = 0
             self.spans.clear()
+            self.memo = self._no_memo()
 
     def count_replay(self, requests: int = 0, used: int = 0) -> None:
         with self._lock:
@@ -178,6 +190,15 @@ class Telemetry:
                 self.chunk_graph_captures += 1
             else:
                 self.chunk_eager += 1
+
+    def count_memo(self, kind: str, level: str) -> None:
+        """One lookup of the ``kind`` memo (``stream``: the prepared
+        analysis buffer, ``upload``: its device copy, ``seed``: the pair's
+        whole-stream alignment), answered at ``level``: ``process`` (this
+        process's memo), ``disk`` (the stream cache's files) or ``miss``
+        (decoded, uploaded or computed afresh)."""
+        with self._lock:
+            self.memo[kind][level] += 1
 
     def add_span(self, name: str, seconds: float) -> None:
         with self._lock:
@@ -202,6 +223,7 @@ class Telemetry:
                 name: {"count": count, "seconds": seconds}
                 for name, (count, seconds) in sorted(self.spans.items())
             }
+            memo = {kind: dict(levels) for kind, levels in self.memo.items()}
         return {
             "rounds": len(self.rounds),
             "requests": sum(r.requests for r in self.rounds),
@@ -218,6 +240,7 @@ class Telemetry:
             "chunk_graph_captures": self.chunk_graph_captures,
             "chunk_eager": self.chunk_eager,
             "spans": spans,
+            "memo": memo,
         }
 
 
@@ -614,7 +637,9 @@ def upload_stream(stream: AudioStream, device) -> Dict[torch.device, torch.Tenso
         with _MEMO_LOCK:
             cached = _UPLOAD_MEMO.get(memo_key)
         if cached is not None and cached[placement[0]].shape[0] >= len(stream.data) + _MAX_FFT:
+            TELEMETRY.count_memo("upload", "process")
             return cached
+    TELEMETRY.count_memo("upload", "miss")
     padded = torch.from_numpy(np.pad(np.ascontiguousarray(stream.data), (0, _MAX_FFT)))
     uploaded = _replicate_on_mesh(padded.to(placement[0]))
     if key is not None:
@@ -775,13 +800,16 @@ class DeviceMatcher:
             with _MEMO_LOCK:
                 cached = _DELTA0_MEMO.get(memo_key)
             if cached is not None:
+                TELEMETRY.count_memo("seed", "process")
                 return cached
             stored = stream_cache.load_alignment_seed(*memo_key)
             if stored is not None:
                 with _MEMO_LOCK:
                     _DELTA0_MEMO[memo_key] = stored
+                TELEMETRY.count_memo("seed", "disk")
                 return stored
 
+        TELEMETRY.count_memo("seed", "miss")
         with span("sushi.seed"):
             seed_started = time.time()
             with member_device(self._pair.device):
@@ -1392,7 +1420,8 @@ def calculate_shifts(
     if not spans:
         return []
     if matcher is None:
-        matcher = DeviceMatcher(src_stream, dst_stream, spans, device=device)
+        with span("sushi.search.matcher"):
+            matcher = DeviceMatcher(src_stream, dst_stream, spans, device=device)
 
     session = SearchSession(
         src_stream,

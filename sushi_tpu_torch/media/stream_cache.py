@@ -55,6 +55,14 @@ def reset_ingest_stats() -> None:
             INGEST_STATS[key] = 0.0
 
 
+def _count_memo(level: str) -> None:
+    """One lookup of a prepared stream, answered at ``level`` (``disk`` or
+    ``miss``: this memo has no in-process level), in the search telemetry."""
+    from sushi_tpu_torch.align.batcher import TELEMETRY
+
+    TELEMETRY.count_memo("stream", level)
+
+
 _FORMAT_VERSION = 1
 # 64 entries keeps a 24-episode season's 48 prepared streams warm on disk
 _MAX_ENTRIES = 64
@@ -254,6 +262,7 @@ def load_stream(
             _log.info("Loaded prepared stream for %s from cache", path)
             stream = cached
     fresh = stream is None
+    _count_memo("miss" if fresh else "disk")
     if fresh:
         t0 = time.time()
         stream = AudioStream(path, sample_rate, sample_type, use_native=use_native)

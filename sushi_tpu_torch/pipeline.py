@@ -6,7 +6,9 @@ package).  As there, the cold ingest is pipelined: each analysis stream
 goes to the device from its ingest thread as soon as it is decoded (one
 stream's upload overlaps the other's decode), and the
 :class:`~sushi_tpu_torch.align.batcher.DeviceMatcher` that
-``calculate_shifts`` builds takes those tensors from the upload memo.  The
+``calculate_shifts`` builds takes those tensors from the upload memo.  A
+process that syncs again against a pair it prepared takes both streams
+from its own memo (:mod:`~sushi_tpu_torch.media.stream_memo`).  The
 optional trace (``SUSHI_PROFILE_DIR``) is a ``torch.profiler`` trace of the
 whole sync, with a ``sushi.pipeline.*`` span around each phase.  The device
 is explicit: ``run(args, device=None)`` runs on CUDA and fails without it.
@@ -24,7 +26,7 @@ from sushi_tpu_torch.align import heuristics, snapping
 from sushi_tpu_torch.align.groups import prepare_search_groups
 from sushi_tpu_torch.errors import SushiError
 from sushi_tpu_torch.media.demux import Demuxer, get_extension
-from sushi_tpu_torch.media.stream_cache import load_pair
+from sushi_tpu_torch.media.stream_memo import load_pair
 from sushi_tpu_torch.media.timecodes import Timecodes
 from sushi_tpu_torch.text import chapters as chapters_mod
 from sushi_tpu_torch.text import keyframes as keyframes_mod

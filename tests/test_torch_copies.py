@@ -28,9 +28,12 @@ COPIED = (
 # * media/stream_cache: load_stream and load_pair take the device to upload
 #   to, ``device``, and pass it on; the upload resolves it
 #   (``upload_stream(stream, resolve_device(device))`` for the JAX
-#   package's ``upload_stream(stream)``).
+#   package's ``upload_stream(stream)``); and load_stream counts the level
+#   at which each lookup was answered into the port's search telemetry
+#   (``_count_memo(level)`` statements, and the function that defines it).
 LOCATION_NAMES = {"media/native": {"_PACKAGE_DIR", "_SOURCE", "_CACHE_DIR"}}
 DEVICE_FUNCTIONS = {"media/stream_cache": {"load_stream", "load_pair"}}
+COUNTERS = {"media/stream_cache": {"_count_memo"}}
 
 
 def _rename(name):
@@ -46,6 +49,7 @@ class _Normalise(ast.NodeTransformer):
     def __init__(self, module):
         self.locations = LOCATION_NAMES.get(module, set())
         self.device_functions = DEVICE_FUNCTIONS.get(module, set())
+        self.counters = COUNTERS.get(module, set())
         self.in_device_function = False
 
     def _drop_docstring(self, node):
@@ -61,8 +65,15 @@ class _Normalise(ast.NodeTransformer):
             statement for statement in node.body
             if not (isinstance(statement, ast.Assign)
                     and {getattr(target, "id", None) for target in statement.targets} & self.locations)
+            and not (isinstance(statement, ast.FunctionDef) and statement.name in self.counters)
         ]
         return self._drop_docstring(node)
+
+    def visit_Expr(self, node):
+        self.generic_visit(node)
+        if isinstance(node.value, ast.Call) and getattr(node.value.func, "id", None) in self.counters:
+            return None
+        return node
 
     def visit_ClassDef(self, node):
         self.generic_visit(node)

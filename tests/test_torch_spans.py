@@ -33,8 +33,8 @@ SEASON = ROUND + REPLAY + (
     "sushi.ingest.groups", "sushi.ingest.matcher", "sushi.ingest.seed",
 )
 PIPELINE = ROUND + REPLAY + (
-    "sushi.seed", "sushi.pipeline.parse", "sushi.pipeline.streams", "sushi.pipeline.groups",
-    "sushi.pipeline.search", "sushi.pipeline.postprocess", "sushi.pipeline.write",
+    "sushi.seed", "sushi.search.matcher", "sushi.pipeline.parse", "sushi.pipeline.streams",
+    "sushi.pipeline.groups", "sushi.pipeline.search", "sushi.pipeline.postprocess", "sushi.pipeline.write",
 )
 INGEST = tuple(name for name in SEASON if name.startswith("sushi.ingest.")) + ("sushi.seed",)
 
@@ -66,7 +66,7 @@ SEASON_PARENTS = {
 }
 PIPELINE_PARENTS = {
     **{name: SEASON_PARENTS[name] for name in ROUND[1:]},
-    **{name: {"sushi.pipeline.search"} for name in REPLAY + ("sushi.seed",)},
+    **{name: {"sushi.pipeline.search"} for name in REPLAY + ("sushi.seed", "sushi.search.matcher")},
     "sushi.round": {"sushi.pipeline.search", "sushi.seed"},
     **{name: {None} for name in PIPELINE if name.startswith("sushi.pipeline.")},
 }
